@@ -1,0 +1,13 @@
+"""hemx_torch — the PyTorch / CUDA port of hemx for NVIDIA Hopper (H100).
+
+The JAX package ``hemx`` is the reference; every module here mirrors the
+``hemx`` module of the same name and is held against it by the CPU tests
+(``tests/test_torch_*.py``). The package imports ``torch`` and numpy only —
+never ``jax``, ``flax``, ``optax`` or ``hemx`` — and Triton only inside the
+CUDA launch path, so ``import hemx_torch`` works on a machine without a GPU.
+
+Nothing is imported eagerly: import the submodule you need
+(``hemx_torch.models.gan``, ``hemx_torch.cli``, ...).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,67 @@
+"""hemx_torch training CLI (counterpart of ``train.py``).
+
+    python -m hemx_torch.cli --model iwgan --dataset synthetic --synthetic_u8 \\
+        --optimizer adam --lr 1e-4 --beta1 0.5 --beta2 0.9 --batch_size 512
+
+Flags are ``hemx``'s (see ``hemx_torch.config``) plus ``--device``
+(default ``cuda``). The last line of standard output is a JSON summary:
+device, final step, call count, median call time and images/s.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import torch
+
+
+class CliError(Exception):
+    def __init__(self, message: str, code: int = 1):
+        super().__init__(message)
+        self.code = code
+
+
+def run(argv=None) -> dict:
+    """Parse, build and train; returns the loop's result plus "args" and
+    "summary"."""
+    from hemx_torch.config import parse_args
+    from hemx_torch.data.synthetic import get_dataset
+    from hemx_torch.models.plugin import available_models, get_model
+    from hemx_torch.ops.layers import set_precision
+    from hemx_torch.train import loop
+
+    args = parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise CliError(f"--device {args.device}: no CUDA device is available "
+                       f"(use --device cpu to run on the CPU)")
+    model_cls = get_model(args.model)
+    if model_cls is None:
+        raise CliError(f"unknown model '{args.model}'. Available in "
+                       f"hemx_torch: {available_models()}", code=2)
+    dataset_cls = get_dataset(args.dataset)
+    if dataset_cls is None:
+        raise CliError(f"dataset '{args.dataset}' is not ported to "
+                       f"hemx_torch (available: ['synthetic'])")
+    set_precision(args.precision)
+    model = model_cls(args, device)
+    splits = dataset_cls.get_datasets(args)
+    result = loop.train(model, splits, args, device)
+    result["args"] = args
+    result["summary"] = loop.summarize(result, args.batch_size, device)
+    print(json.dumps(result["summary"]), flush=True)
+    return result
+
+
+def main(argv=None) -> int:
+    try:
+        run(argv)
+    except (CliError, NotImplementedError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return getattr(e, "code", 1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,84 @@
+"""Synthetic in-memory dataset (counterpart of ``hemx.data.synthetic``).
+
+A numpy copy of ``hemx``'s ``_make_images`` and of its uint8 rounding,
+pinned equal to the original by ``tests/test_torch_data.py``. Only the
+``image`` key and the ``train`` split are built (the IWGAN slice reads
+nothing else).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from hemx_torch.data.pipeline import ArraySource, Split, U8Normalize
+
+
+def _make_images(n: int, h: int, w: int, c: int, seed: int,
+                 blobs: int = 5, chunk: int = 2048) -> np.ndarray:
+    """Structured scenes: a linear-gradient background plus ``blobs`` soft
+    elliptical blobs with random position/size/orientation/color."""
+    rng = np.random.default_rng(seed)
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    out = np.empty((n, h, w, c), np.float32)
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        g0 = rng.uniform(0.25, 0.75, (m, 1, 1, c)).astype(np.float32)
+        gx = rng.uniform(-0.4, 0.4, (m, 1, 1, c)).astype(np.float32)
+        gy = rng.uniform(-0.4, 0.4, (m, 1, 1, c)).astype(np.float32)
+        img = g0 + gx * xx[None, :, :, None] + gy * yy[None, :, :, None]
+        for _ in range(blobs):
+            cx = rng.uniform(0.1, 0.9, (m, 1, 1)).astype(np.float32)
+            cy = rng.uniform(0.1, 0.9, (m, 1, 1)).astype(np.float32)
+            rx = rng.uniform(0.06, 0.25, (m, 1, 1)).astype(np.float32)
+            ry = rng.uniform(0.06, 0.25, (m, 1, 1)).astype(np.float32)
+            th = rng.uniform(0.0, np.pi, (m, 1, 1)).astype(np.float32)
+            col = rng.uniform(-0.8, 0.8, (m, c)).astype(np.float32)
+            dx = xx[None] - cx
+            dy = yy[None] - cy
+            u = (np.cos(th) * dx + np.sin(th) * dy) / rx
+            v = (-np.sin(th) * dx + np.cos(th) * dy) / ry
+            blob = np.exp(-(u * u + v * v))
+            img += blob[..., None] * col[:, None, None, :]
+        out[s:s + m] = np.clip(img, 0.0, 1.0)
+    return out
+
+
+def to_u8(images: np.ndarray) -> np.ndarray:
+    """``--synthetic_u8`` storage: round [0,1] floats to uint8."""
+    return np.round(images * 255.0).astype(np.uint8)
+
+
+class SyntheticDataset:
+    @staticmethod
+    def arguments() -> dict:
+        return {
+            "--synthetic_count": dict(type=int, default=1024,
+                                      help="Samples in the train split."),
+            "--synthetic_shape": dict(type=int, nargs=3, default=[64, 64, 3],
+                                      help="H W C of generated images."),
+            "--synthetic_u8": dict(
+                action="store_true", default=False,
+                help="Store images as uint8 and normalize on the device "
+                     "(the real-dataset path); float32 otherwise."),
+        }
+
+    @classmethod
+    def get_datasets(cls, args) -> dict:
+        """{"train": Split} with the ``image`` key, seeded by ``args.seed``
+        exactly as ``hemx``'s train split."""
+        h, w, c = args.synthetic_shape
+        images = _make_images(args.synthetic_count, h, w, c, seed=args.seed)
+        dt = None
+        if args.synthetic_u8:
+            images = to_u8(images)
+            dt = U8Normalize(keys=("image",))
+        return {"train": Split(ArraySource({"image": images}),
+                               device_transform=dt)}
+
+
+_DATASETS = {"synthetic": SyntheticDataset}
+
+
+def get_dataset(name: str):
+    return _DATASETS.get(name)

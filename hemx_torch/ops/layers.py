@@ -1,0 +1,220 @@
+"""Layers of the IWGAN path (counterpart of ``hemx.ops.layers``).
+
+Tensors are NCHW logically and ``torch.channels_last`` in memory, so cuDNN
+runs its NHWC kernels. Parameter names follow the ``hemx`` pytree (``w``,
+``b``, BN ``beta`` under ``bn`` for dense and ``norm0`` for conv/deconv;
+BN buffers ``mean`` and ``var``) so ``hemx_torch.convert`` is a rename plus
+the layout permutes below. Every layer's ``forward`` returns
+``(y, stats)``: ``stats`` maps a BN module's name (relative to the
+returning module) to its new moving ``(mean, var)``; ``BatchNorm`` itself
+returns ``(y, (mean, var))``. Nothing writes a
+buffer inside ``forward``; the caller commits the stats it keeps with
+:func:`commit_moving_stats` (the IWGAN critic step runs G and discards
+them, ``hemx/models/gan.py:236``).
+
+Hazards reproduced from ``hemx`` (each gives right shapes, wrong values):
+
+* SAME conv padding is asymmetric (``lo = total // 2`` on top/left); it
+  is applied with ``F.pad`` before an unpadded conv.
+* ``conv_transpose2d`` with ``padding=lo`` crops ``lo`` from both sides of
+  the full transpose; the extra ``hi - lo`` rows/cols are cropped after.
+* BN is hand-written: decay 0.999, eps 1e-3, beta only, batch statistics,
+  and the moving variance is the *biased* one.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from hemx_torch.ops.initializers import xavier_uniform
+
+CL = torch.channels_last
+
+
+def set_precision(name: str) -> None:
+    """``--precision``: 'default' and 'high' let cuBLAS and cuDNN use TF32
+    for float32; 'highest' keeps full float32 (the counterpart of
+    ``hemx.ops.layers.set_default_precision``)."""
+    if name not in ("default", "high", "highest"):
+        raise ValueError(f"unknown precision '{name}'")
+    tf32 = name != "highest"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+
+
+def same_padding(in_dim: int, k: int, s: int) -> tuple[int, int]:
+    """XLA/TF SAME padding (lo, hi) for one spatial dim."""
+    total = max((math.ceil(in_dim / s) - 1) * s + k - in_dim, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_op(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """SAME conv of NCHW ``x`` with OIHW ``w`` (``hemx.ops.layers.conv2d_op``)."""
+    kh, kw = w.shape[2:]
+    ph = same_padding(x.shape[2], kh, stride)
+    pw = same_padding(x.shape[3], kw, stride)
+    if any(ph + pw):
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.conv2d(x, w, stride=stride)
+
+
+def deconv2d_op(x: torch.Tensor, w: torch.Tensor, out_hw: tuple[int, int],
+                stride: int) -> torch.Tensor:
+    """Transposed conv matching ``tf.nn.conv2d_transpose`` with SAME padding
+    (``hemx.ops.layers.deconv2d_op``); ``w`` is torch's (in, out, kh, kw)."""
+    kh, kw = w.shape[2:]
+    h, wd = x.shape[2:]
+    oh, ow = out_hw
+    pad_h = (h - 1) * stride + kh - oh
+    pad_w = (wd - 1) * stride + kw - ow
+    if pad_h < 0 or pad_w < 0:
+        raise ValueError(f"deconv2d_op: output {out_hw} larger than the full "
+                         f"transpose of {(h, wd)}; not supported")
+    lo_h, lo_w = pad_h // 2, pad_w // 2
+    y = F.conv_transpose2d(x, w, stride=stride, padding=(lo_h, lo_w))
+    return y[:, :, :oh, :ow]
+
+
+def commit_moving_stats(net: nn.Module, stats: dict) -> None:
+    """Write the BN moving stats a forward returned into ``net``'s buffers."""
+    with torch.no_grad():
+        for name, (mean, var) in stats.items():
+            bn = net.get_submodule(name)
+            bn.mean.copy_(mean)
+            bn.var.copy_(var)
+
+
+class BatchNorm(nn.Module):
+    """Batch norm over every axis but channels: (B, F) -> axis 0, NCHW ->
+    (0, 2, 3). TF contrib defaults (decay 0.999, eps 1e-3, center only)."""
+
+    DECAY = 0.999
+    EPS = 1e-3
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.beta = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor):
+        dims = (0,) if x.dim() == 2 else (0, 2, 3)
+        shape = (1, -1) if x.dim() == 2 else (1, -1, 1, 1)
+        mean = x.mean(dims)
+        var = x.var(dims, correction=0)
+        y = (x - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.EPS)
+        y = y + self.beta.view(shape)
+        with torch.no_grad():
+            new_mean = self.DECAY * self.mean + (1.0 - self.DECAY) * mean
+            new_var = self.DECAY * self.var + (1.0 - self.DECAY) * var
+        return y, (new_mean, new_var)
+
+
+class _Layer(nn.Module):
+    """Shared post-op chain of the parameterized layers: bias -> BN ->
+    activation (``hemx.ops.layers`` order)."""
+
+    norm_name = "norm0"
+
+    def _post(self, y: torch.Tensor, bias_shape):
+        y = y + self.b.view(bias_shape)
+        stats = {}
+        norm = getattr(self, self.norm_name, None)
+        if norm is not None:
+            y, s = norm(y)
+            stats = {self.norm_name: s}
+        if self.activation is not None:
+            y = self.activation(y)
+        return y, stats
+
+
+class Dense(_Layer):
+    """Fully connected layer; ``w`` is torch's (out, in)."""
+
+    norm_name = "bn"
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 generator: torch.Generator, use_batch_norm: bool = False,
+                 activation: Optional[Callable] = None):
+        super().__init__()
+        w = xavier_uniform((in_features, out_features), generator=generator)
+        self.w = nn.Parameter(w.t().contiguous())
+        self.b = nn.Parameter(xavier_uniform((out_features,), generator=generator))
+        if use_batch_norm:
+            self.bn = BatchNorm(out_features)
+        self.activation = activation
+
+    def forward(self, x):
+        return self._post(F.linear(x, self.w), (1, -1))
+
+
+class Conv2d(_Layer):
+    """SAME conv; ``w`` is OIHW (from ``hemx``'s HWIO by permute(3,2,0,1))."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, stride: int, *,
+                 generator: torch.Generator, use_batch_norm: bool = False,
+                 activation: Optional[Callable] = None):
+        super().__init__()
+        w = xavier_uniform((k, k, in_ch, out_ch), generator=generator)
+        self.w = nn.Parameter(w.permute(3, 2, 0, 1).contiguous(memory_format=CL))
+        self.b = nn.Parameter(xavier_uniform((out_ch,), generator=generator))
+        self.stride = stride
+        if use_batch_norm:
+            self.norm0 = BatchNorm(out_ch)
+        self.activation = activation
+
+    def forward(self, x):
+        return self._post(conv2d_op(x, self.w, self.stride), (1, -1, 1, 1))
+
+
+class Deconv2d(_Layer):
+    """SAME transposed conv doubling H and W (v1 semantics); ``w`` is
+    torch's (in, out, kh, kw), from ``hemx``'s ``[H, W, out, in]`` by
+    permute(3,2,0,1) — both are true transposes, no flip."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, stride: int, *,
+                 generator: torch.Generator, use_batch_norm: bool = False,
+                 activation: Optional[Callable] = None):
+        super().__init__()
+        w = xavier_uniform((k, k, out_ch, in_ch), generator=generator)
+        self.w = nn.Parameter(w.permute(3, 2, 0, 1).contiguous(memory_format=CL))
+        self.b = nn.Parameter(xavier_uniform((out_ch,), generator=generator))
+        self.stride = stride
+        if use_batch_norm:
+            self.norm0 = BatchNorm(out_ch)
+        self.activation = activation
+
+    def forward(self, x):
+        out_hw = (x.shape[2] * self.stride, x.shape[3] * self.stride)
+        y = deconv2d_op(x, self.w, out_hw, self.stride)
+        return self._post(y, (1, -1, 1, 1))
+
+
+class Flatten(nn.Module):
+    """(B, C, H, W) -> (B, H*W*C) in NHWC order, like ``hemx``'s flatten of
+    an NHWC tensor (the dense weights that follow depend on the order)."""
+
+    def forward(self, x):
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1), {}
+
+
+class Sequential(nn.Module):
+    """Named layers applied in order; collects every child's BN stats under
+    the child's name (``hemx.core.sequential``)."""
+
+    def __init__(self, layers: dict):
+        super().__init__()
+        for name, layer in layers.items():
+            self.add_module(name, layer)
+
+    def forward(self, x):
+        stats = {}
+        for name, layer in self.named_children():
+            x, s = layer(x)
+            stats.update({f"{name}.{k}": v for k, v in s.items()})
+        return x, stats

@@ -23,7 +23,9 @@ setup(
     version="0.1.0",
     description="TPU-native autoencoder/GAN research framework "
                 "(JAX/XLA/Pallas rebuild of hem)",
-    packages=find_packages(include=["hemx", "hemx.*"]),
+    # hemx_torch: the PyTorch/CUDA port (needs the "torch" extra)
+    packages=find_packages(include=["hemx", "hemx.*",
+                                    "hemx_torch", "hemx_torch.*"]),
     # hemx.native.load() prefers the prebuilt hemx.data._native extension
     # (above); the source is shipped too so the build-on-demand path can
     # still work where the wheel's extension is absent.
@@ -33,6 +35,7 @@ setup(
                 "events", "visualize_gui", "bench"],
     python_requires=">=3.10",
     install_requires=["jax", "optax", "flax", "numpy"],
-    extras_require={"viz": ["matplotlib", "pillow"]},
+    extras_require={"viz": ["matplotlib", "pillow"],
+                    "torch": ["torch", "triton"]},
     ext_modules=ext_modules,
 )

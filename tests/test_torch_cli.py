@@ -1,0 +1,111 @@
+"""hemx_torch's CLI and package boundary.
+
+* The port never loads JAX: importing its modules in a fresh interpreter
+  leaves ``jax`` (and ``hemx``, ``flax``, ``optax``) out of sys.modules, and
+  no source file imports them.
+* ``python -m hemx_torch.cli ... --device cpu`` trains at a tiny size and
+  reports ``step == epoch_size``; ``--device cuda`` without a GPU fails.
+* Every flag the port shares with hemx has hemx.config's name and default.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _hemx_float32():
+    """hemx's compute dtype and precision are process-wide, and bench.main()
+    in an earlier test of this worker may have left them at bfloat16:
+    compare against, and leave behind, hemx's float32 defaults."""
+    from hemx.ops import layers
+    layers.set_compute_dtype(None)
+    layers.set_default_precision("default")
+
+
+REPO = Path(__file__).resolve().parents[1]
+TINY = ["--model", "iwgan", "--dataset", "synthetic", "--synthetic_u8",
+        "--synthetic_count", "24", "--synthetic_shape", "16", "16", "3",
+        "--batch_size", "4", "--latent_size", "8", "--n_disc_train", "2",
+        "--optimizer", "adam", "--lr", "1e-4", "--beta1", "0.5",
+        "--beta2", "0.9", "--epochs", "1", "--epoch_size", "3", "--seed", "1"]
+
+
+def _run(args, timeout=120):
+    return subprocess.run([sys.executable] + args, cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout,
+                          env={**os.environ, "PYTHONPATH": str(REPO)})
+
+
+def test_port_does_not_load_jax():
+    code = ("import sys\n"
+            "import hemx_torch.cli, hemx_torch.models.gan, hemx_torch.convert\n"
+            "import hemx_torch.data.synthetic, hemx_torch.train.loop\n"
+            "import hemx_torch.config, hemx_torch.ops.input_kernels\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'flax', 'optax', 'hemx')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sources_import_no_jax_or_hemx():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|hemx)\b",
+                     re.M)
+    for path in (REPO / "hemx_torch").rglob("*.py"):
+        assert not pat.search(path.read_text()), path
+    assert not pat.search((REPO / "chip_smoke.py").read_text())
+
+
+def test_cli_trains_on_cpu():
+    r = _run(["-m", "hemx_torch.cli"] + TINY + ["--device", "cpu"])
+    assert r.returncode == 0, r.stderr
+    summary = json.loads(r.stdout.strip().splitlines()[-1])
+    assert summary["step"] == 3 and summary["calls"] == 3
+    assert summary["device"] == "cpu"
+
+
+def test_cli_cuda_without_gpu_fails():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = _run(["-m", "hemx_torch.cli"] + TINY + ["--device", "cuda"])
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+
+
+def test_cli_unknown_model_exits_2():
+    from hemx_torch import cli
+    assert cli.main(["--model", "cnn", "--dataset", "synthetic",
+                     "--device", "cpu"]) == 2
+
+
+def test_shared_flags_match_hemx_defaults():
+    from hemx.config import build_base_parser as hemx_parser
+    from hemx.data.synthetic import SyntheticDataset as HD
+    from hemx.models.gan import IwganModel as HM
+    from hemx_torch.config import build_base_parser
+    from hemx_torch.data.synthetic import SyntheticDataset as TD
+    from hemx_torch.models.gan import IwganModel as TM
+
+    def defaults(parser):
+        return {a.dest: (a.default, a.option_strings[0]) for a in parser._actions
+                if a.dest != "help"}
+
+    want = defaults(hemx_parser())
+    got = defaults(build_base_parser())
+    assert set(got) - set(want) == {"device"}
+    for dest in set(got) - {"device"}:
+        assert got[dest] == want[dest], dest
+    for hemx_cls, port_cls in ((HD, TD), (HM, TM)):
+        h_args = hemx_cls.arguments()
+        for flag, spec in port_cls.arguments().items():
+            assert spec.get("default") == h_args[flag].get("default"), flag
+            assert spec.get("type") == h_args[flag].get("type"), flag

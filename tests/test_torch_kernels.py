@@ -1,0 +1,108 @@
+"""hemx_torch's gather+normalize input kernel against hemx's normalize.
+
+On the CPU the wrapper takes its plain PyTorch version; that version must
+equal hemx's ``u8_normalize`` and ``u8_normalize_pallas`` (on the CPU the
+latter runs its own jnp path, as tests/test_ops.py runs it) on the same
+gathered rows: bit for bit for (lo, hi) = (0, 1), within atol 1e-6 (one
+float32 ulp on [-1, 1]) for (-1, 1). The Triton kernel itself runs only on
+a CUDA device; its case is marked ``cuda`` and skips without one. JAX is
+imported only by the hemx comparison, so on the GPU machine (no JAX) the
+``cuda`` cases run with
+``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from hemx_torch.ops import input_kernels as K  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _hemx_float32():
+    """hemx's compute dtype and precision are process-wide, and bench.main()
+    in an earlier test of this worker may have left them at bfloat16:
+    compare against, and leave behind, hemx's float32 defaults. (The GPU
+    machine runs this file's cuda cases without JAX, hence no hemx.)"""
+    try:
+        from hemx.ops import layers
+    except ImportError:
+        return
+    layers.set_compute_dtype(None)
+    layers.set_default_precision("default")
+
+
+def _data(seed, n=12, shape=(8, 8, 3), rows=9):
+    rng = np.random.default_rng(seed)
+    ds = rng.integers(0, 256, (n,) + shape, dtype=np.uint8)
+    idx = rng.choice(n, rows, replace=True)
+    return ds, idx
+
+
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-1.0, 1.0)])
+def test_plain_matches_hemx(lo, hi, idx_dtype):
+    import jax.numpy as jnp
+    from hemx.ops.pallas_kernels import u8_normalize, u8_normalize_pallas
+    ds, idx = _data(0)
+    got = K.gather_u8_normalize(torch.from_numpy(ds),
+                                torch.from_numpy(idx.astype(idx_dtype)), lo, hi)
+    got = got.permute(0, 2, 3, 1).numpy()
+    for fn in (u8_normalize, u8_normalize_pallas):
+        want = np.asarray(fn(jnp.asarray(ds[idx]), lo, hi))
+        if lo == 0.0:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_cpu_layout_and_no_launch():
+    """CPU tensors take the plain version (no kernel launch is counted);
+    the result is (R, C, H, W) float32 in channels_last memory."""
+    ds, idx = _data(1, shape=(5, 7, 3), rows=4)
+    before = dict(K.LAUNCHES)
+    out = K.gather_u8_normalize(torch.from_numpy(ds), torch.from_numpy(idx))
+    assert K.LAUNCHES == before
+    assert out.shape == (4, 3, 5, 7) and out.dtype == torch.float32
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_array_equal(out.permute(0, 2, 3, 1).numpy(),
+                                  ds[idx].astype(np.float32) * (1.0 / 255.0))
+
+
+@pytest.mark.parametrize("ds_dtype,idx_shape", [
+    (torch.float32, (3,)),      # dataset must be uint8
+    (torch.uint8, (3, 1)),      # index must be 1-D
+])
+def test_rejects_bad_inputs(ds_dtype, idx_shape):
+    ds = torch.zeros((4, 2, 2, 3), dtype=ds_dtype)
+    idx = torch.zeros(idx_shape, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        K.gather_u8_normalize(ds, idx)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Triton kernel has no CPU mode)")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rows", [((64, 64, 3), 3072), ((5, 7, 3), 37)])
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-1.0, 1.0)])
+def test_kernel_matches_plain_on_cuda(cuda_device, shape, rows, lo, hi):
+    """The Triton kernel equals its plain version on the card (max abs
+    diff 1e-6) and counts one launch."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    ds = torch.randint(0, 256, (rows + 5,) + shape, dtype=torch.uint8,
+                       device=cuda_device, generator=g)
+    idx = torch.randint(0, rows + 5, (rows,), device=cuda_device, generator=g)
+    before = K.LAUNCHES["gather_u8_normalize"]
+    got = K.gather_u8_normalize(ds, idx, lo, hi)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gather_u8_normalize"] == before + 1
+    want = K.gather_u8_normalize_ref(ds, idx, lo, hi)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert (got - want).abs().max().item() <= 1e-6

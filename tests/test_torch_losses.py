@@ -1,0 +1,113 @@
+"""hemx_torch WGAN losses and IWGAN gradient penalty against hemx.ops.losses.
+
+The penalty is compared in both norm modes (the reference's whole-batch
+norm and the per-sample norm), for its value and for its gradient with
+respect to the critic's weights (the double backward), on a small critic
+(one 5x5 stride-2 conv + lrelu, NHWC flatten, dense -> 1) with the same
+JAX-initialized weights. Tolerance rtol 1e-5 / atol 1e-6: float32 on the
+CPU, sums in different orders.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from hemx.core import Ctx, sequential  # noqa: E402
+from hemx.ops import layers as HL  # noqa: E402
+from hemx.ops import losses as HLoss  # noqa: E402
+from hemx.ops.activations import lrelu as h_lrelu  # noqa: E402
+from hemx_torch import convert  # noqa: E402
+from hemx_torch.ops import layers as TL  # noqa: E402
+from hemx_torch.ops import losses as TLoss  # noqa: E402
+from hemx_torch.ops.activations import lrelu as t_lrelu  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _hemx_float32():
+    """hemx's compute dtype and precision are process-wide, and bench.main()
+    in an earlier test of this worker may have left them at bfloat16:
+    compare against, and leave behind, hemx's float32 defaults."""
+    HL.set_compute_dtype(None)
+    HL.set_default_precision("default")
+
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+B, HW = 4, 8
+
+
+def _nchw(x):
+    return torch.from_numpy(x.copy()).permute(0, 3, 1, 2)
+
+
+def _critics():
+    h = sequential(HL.conv2d(4, 5, 2, activation=h_lrelu, name="c1"),
+                   HL.flatten(), HL.dense(1, name="fc2"))
+    params, state, _ = h.init(jax.random.PRNGKey(0), (B, HW, HW, 3))
+    g = torch.Generator().manual_seed(0)
+    t = TL.Sequential({"c1": TL.Conv2d(3, 4, 5, 2, activation=t_lrelu,
+                                       generator=g),
+                       "flatten": TL.Flatten(),
+                       "fc2": TL.Dense(4 * 4 * 4, 1, generator=g)})
+    convert.load_from_jax(t, jax.device_get(params), {})
+    return h, params, state, t
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_gradient_penalty_matches_hemx(per_sample):
+    rng = np.random.default_rng(0)
+    xr = rng.uniform(-1, 1, (B, HW, HW, 3)).astype(np.float32)
+    xf = rng.uniform(-1, 1, (B, HW, HW, 3)).astype(np.float32)
+    alpha = rng.uniform(0, 1, (B, 1)).astype(np.float32)
+    h, params, state, t = _critics()
+
+    def gp_fn(p):
+        def d_apply(imgs):
+            return h.apply(p, state, imgs, Ctx(training=True))[0].reshape(-1)
+        return HLoss.gradient_penalty(d_apply, jnp.asarray(xr), jnp.asarray(xf),
+                                      jnp.asarray(alpha), per_sample=per_sample)
+
+    want, want_g = jax.jit(jax.value_and_grad(gp_fn))(params)
+    got = TLoss.gradient_penalty(lambda z: t(z)[0].reshape(-1), _nchw(xr),
+                                 _nchw(xf), torch.from_numpy(alpha),
+                                 per_sample=per_sample)
+    names = [n for n, _ in t.named_parameters()]
+    # biases reach the penalty only through lrelu's piecewise-constant
+    # slope: no autograd path, zero gradient (as JAX reports)
+    grads = torch.autograd.grad(got, list(t.parameters()), allow_unused=True,
+                                materialize_grads=True)
+    np.testing.assert_allclose(got.item(), float(want), **TOL)
+    want_g = convert.flatten_tree(jax.device_get(want_g))
+    for n, g in zip(names, grads):
+        np.testing.assert_allclose(convert.tensor_to_jax(t, n, g),
+                                   want_g[tuple(n.split("."))], err_msg=n, **TOL)
+
+
+def test_gradient_penalty_norm_modes_differ():
+    """Whole-batch and per-sample norms are different functions (the
+    reference's quirk is kept as the default, not silently fixed)."""
+    rng = np.random.default_rng(1)
+    xr = _nchw(rng.uniform(-1, 1, (B, HW, HW, 3)).astype(np.float32))
+    xf = _nchw(rng.uniform(-1, 1, (B, HW, HW, 3)).astype(np.float32))
+    alpha = torch.rand((B, 1), generator=torch.Generator().manual_seed(0))
+    _, _, _, t = _critics()
+    d = lambda z: t(z)[0].reshape(-1)  # noqa: E731
+    whole = TLoss.gradient_penalty(d, xr, xf, alpha).detach()
+    per = TLoss.gradient_penalty(d, xr, xf, alpha, per_sample=True).detach()
+    assert abs(whole.item() - per.item()) > 1e-4
+
+
+def test_wgan_losses_match_hemx():
+    rng = np.random.default_rng(2)
+    real = rng.standard_normal(8).astype(np.float32)
+    fake = rng.standard_normal(8).astype(np.float32)
+    np.testing.assert_allclose(
+        float(TLoss.wgan_g_loss(torch.from_numpy(fake))),
+        float(HLoss.wgan_g_loss(jnp.asarray(fake))), rtol=1e-6)
+    np.testing.assert_allclose(
+        float(TLoss.wgan_d_loss(torch.from_numpy(real), torch.from_numpy(fake))),
+        float(HLoss.wgan_d_loss(jnp.asarray(real), jnp.asarray(fake))),
+        rtol=1e-6)
