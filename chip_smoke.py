@@ -19,24 +19,46 @@ prints its last line):
    noise on cuda and on cpu; losses rtol 5e-4 / atol 1e-5, params and G's
    BN stats rtol 2e-3 / atol 2e-5 (tests/test_models.py:324-332).
 4. The slice at full width through the CLI: IWGAN latent 200, 64x64x3,
-   batch 512, 5 critic steps + 1 generator step per call, Adam, 8 calls
-   on a 4096-image uint8 dataset (the stream crosses epoch tails). Checks
-   finite losses, step == 8, changed G and D params, everything on cuda,
-   and that the kernel launched once per batch group (plus once per tail
-   batch). Prints the median call time and images/s beside the card name.
+   batch 512, 5 critic steps + 1 generator step per call, Adam, f32, 8
+   calls on a 4096-image uint8 dataset (the stream crosses epoch tails).
+   Checks finite losses, step == 8, changed G and D params, everything on
+   cuda, and that the kernel launched once per batch group (plus once per
+   tail batch, the summary batch and each validation batch). Prints the
+   median call time and images/s beside the card name.
+5. Card vs CPU at phase 3's size in bf16 with rmsprop at hemx's defaults
+   (decay 0.9, momentum 0.01): the output dtype of every layer (forward
+   hooks) is the same on both devices and is hemx's (bf16, f32 after BN);
+   losses rtol 3e-2; params and G's BN stats rtol 1e-2 / atol 1e-4 at
+   most (the tolerance the run needed is printed).
+6. The whole run at full width in bf16: ``--dtype bfloat16``, Adam, 1
+   epoch of 6 calls with ``--max_to_keep 2``, then ``--epochs +1`` on the
+   same ``--dir``. Checks checkpoints 0 and 1 after the first run; the
+   second resumes at step 6 from checkpoint 1 (restore bit-exact), ends at
+   step 12 with checkpoints {1, 2}; finite train and validate losses at the
+   expected summary steps, read back from the events files; every conv and
+   BN input on the card in bf16; the input kernel's launch count. Prints
+   call time, images/s, checkpoint size, save and restore seconds and
+   seconds per summary write.
 
 The line before the last is a JSON list of the kernels with their launch
-counts from phase 4 and their phase-2 errors and times; the last line is
-``{"ok": true, "device": {...}}``.
+counts from phases 4 and 6, their phase-2 errors and times, and their
+bound; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import time
+
+# H100 SXM HBM3 rate (NVIDIA data sheet), for the kernel's bound
+HBM_BYTES_PER_S = 3.35e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -111,12 +133,19 @@ def phase_kernel(torch, dev) -> dict:
     ms = _median_ms(torch, {
         "kernel": lambda: K.gather_u8_normalize(ds, idx, 0.0, 1.0),
         "plain": lambda: K.gather_u8_normalize_ref(ds, idx, 0.0, 1.0)})
-    moved = idx.numel() * 64 * 64 * 3 * 5  # uint8 in + float32 out
+    # bytes the function must move: the gathered uint8 rows and the index
+    # read once, the float32 rows written once
+    moved = idx.numel() * (64 * 64 * 3 * 5 + idx.element_size())
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
     print(f"gather_u8_normalize 3072x64x64x3: kernel {ms['kernel']:.4f} ms "
           f"({moved / ms['kernel'] / 1e6:.1f} GB/s), plain {ms['plain']:.4f} "
-          f"ms (median of 25 CUDA-event timed launches)", flush=True)
+          f"ms (median of 25 CUDA-event timed launches); bound "
+          f"{bound_ms:.4f} ms ({moved / 1e6:.1f} MB at 3.35 TB/s), kernel at "
+          f"{100 * bound_ms / ms['kernel']:.0f} % of it; no single PyTorch "
+          f"call computes gather + convert + scale", flush=True)
     return {"max_abs_err": max_err, "ms": ms["kernel"],
-            "plain_ms": ms["plain"]}
+            "plain_ms": ms["plain"], "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def _close(a, b, rtol, atol, what):
@@ -127,21 +156,26 @@ def _close(a, b, rtol, atol, what):
                     f"(max abs diff {np.max(np.abs(a - b)):.3g})")
 
 
-def phase_card_vs_cpu(torch, dev) -> None:
-    from hemx_torch import convert
+def _small_args(extra):
     from hemx_torch.config import parse_args
+    return parse_args(["--model", "iwgan", "--dataset", "synthetic",
+                       "--synthetic_u8", "--synthetic_count", "64",
+                       "--synthetic_shape", "32", "32", "3",
+                       "--batch_size", "8", "--latent_size", "16",
+                       "--n_disc_train", "5", "--precision", "highest",
+                       "--seed", "0"] + extra)
+
+
+def _one_call_each(torch, dev, args, hooks: bool = False) -> dict:
+    """One IWGAN train call from the same weights, batches and noise on the
+    CPU and on ``dev``: {device: (metrics, (params, mstate), batches,
+    layer output dtypes)}."""
+    from hemx_torch import convert
     from hemx_torch.data.pipeline import DeviceDataPipeline
     from hemx_torch.data.synthetic import SyntheticDataset
     from hemx_torch.models.gan import IwganModel
     from hemx_torch.ops.layers import set_precision
 
-    args = parse_args(["--model", "iwgan", "--dataset", "synthetic",
-                       "--synthetic_u8", "--synthetic_count", "64",
-                       "--synthetic_shape", "32", "32", "3",
-                       "--batch_size", "8", "--latent_size", "16",
-                       "--n_disc_train", "5", "--optimizer", "sgd",
-                       "--lr", "1e-3", "--precision", "highest",
-                       "--seed", "0"])
     set_precision(args.precision)
     split = SyntheticDataset.get_datasets(args)["train"]
     g = torch.Generator()
@@ -153,27 +187,104 @@ def phase_card_vs_cpu(torch, dev) -> None:
     for d in ("cpu", dev):
         model = IwganModel(args, d)
         ts = model.init_state((3, 32, 32), args.seed)
+        dtypes, handles = {}, []
+
+        def record(key):
+            def hook(module, inp, out):
+                dtypes.setdefault(key, out[0].dtype)
+            return hook
+        if hooks:
+            for net in ("generator", "discriminator"):
+                for name, layer in ts.nets[net].named_children():
+                    handles.append(layer.register_forward_hook(
+                        record(f"{net}/{name}")))
         pipe = DeviceDataPipeline(split, 8, device=d, keys=("image",),
                                   seed=0, group=model.batches_per_train_call())
         batches = list(pipe.epoch(0))[:6]
         ts, metrics = model.train(ts, iter(batches), noise=noise)
+        for h in handles:
+            h.remove()
         out[str(d)] = ({k: float(v) for k, v in metrics.items()},
                        convert.to_jax(ts.nets),
-                       [b["image"].cpu() for b in batches])
-    (m_gpu, (p_gpu, s_gpu), b_gpu), (m_cpu, (p_cpu, s_cpu), b_cpu) = (
-        out[str(dev)], out["cpu"])
-    for a, b in zip(b_gpu, b_cpu):
-        check(torch.equal(a, b), "cuda and cpu batches differ")
-    for k in m_cpu:
-        _close(m_gpu[k], m_cpu[k], 5e-4, 1e-5, k)
+                       [b["image"].cpu() for b in batches], dtypes)
+    return out
+
+
+def _compare_trees(out, dev, rtol, atol):
+    """Check both runs' params and BN stats at (rtol, atol); returns the
+    largest |cuda - cpu| and the largest |cuda - cpu| - rtol * |cpu|."""
+    import numpy as np
+    from hemx_torch import convert
+    (_, (p_gpu, s_gpu), _, _), (_, (p_cpu, s_cpu), _, _) = (out[str(dev)],
+                                                            out["cpu"])
+    worst_abs = worst_excess = 0.0
     for tree_gpu, tree_cpu in ((p_gpu, p_cpu), (s_gpu, s_cpu)):
         fg = convert.flatten_tree(tree_gpu)
         fc = convert.flatten_tree(tree_cpu)
         check(sorted(fg) == sorted(fc), "parameter trees differ")
         for k in fc:
-            _close(fg[k], fc[k], 2e-3, 2e-5, "/".join(k))
+            _close(fg[k], fc[k], rtol, atol, "/".join(k))
+            diff = np.abs(fg[k] - fc[k])
+            worst_abs = max(worst_abs, float(diff.max()))
+            worst_excess = max(worst_excess, float(
+                (diff - rtol * np.abs(fc[k])).max()))
+    return worst_abs, worst_excess
+
+
+def phase_card_vs_cpu(torch, dev) -> None:
+    args = _small_args(["--optimizer", "sgd", "--lr", "1e-3"])
+    out = _one_call_each(torch, dev, args)
+    (m_gpu, _, b_gpu, _), (m_cpu, _, b_cpu, _) = out[str(dev)], out["cpu"]
+    for a, b in zip(b_gpu, b_cpu):
+        check(torch.equal(a, b), "cuda and cpu batches differ")
+    for k in m_cpu:
+        _close(m_gpu[k], m_cpu[k], 5e-4, 1e-5, k)
+    _compare_trees(out, dev, 2e-3, 2e-5)
     print(f"card vs cpu (32px, latent 16, batch 8, highest, sgd): losses "
           f"cuda {m_gpu} cpu {m_cpu}; params and BN stats agree", flush=True)
+
+
+def hemx_bf16_dtypes(torch, nets) -> dict:
+    """The output dtype of each layer under hemx's bf16 policy
+    (``hemx/ops/layers.py:78-83,274-300,391-401,450-451,508-509``): a
+    conv/deconv/dense outputs bf16 unless BN follows it (``+ beta`` in f32
+    makes it f32); a layer without parameters keeps its input's dtype."""
+    from hemx_torch.ops.layers import BatchNorm
+    want = {}
+    for net in ("generator", "discriminator"):
+        cur = None
+        for name, layer in nets[net].named_children():
+            if any(True for _ in layer.parameters()):
+                bn = any(isinstance(m, BatchNorm) for m in layer.modules())
+                cur = torch.float32 if bn else torch.bfloat16
+            want[f"{net}/{name}"] = cur
+    return want
+
+
+def phase_bf16_card_vs_cpu(torch, dev) -> None:
+    from hemx_torch.models.gan import IwganModel
+    args = _small_args(["--dtype", "bfloat16", "--optimizer", "rmsprop"])
+    check(args.decay == 0.9 and args.momentum == 0.01,
+          f"rmsprop defaults decay {args.decay} momentum {args.momentum}")
+    out = _one_call_each(torch, dev, args, hooks=True)
+    (m_gpu, _, b_gpu, t_gpu), (m_cpu, _, b_cpu, t_cpu) = (out[str(dev)],
+                                                          out["cpu"])
+    want = hemx_bf16_dtypes(torch, IwganModel(args, "cpu").init_state(
+        (3, 32, 32), 0).nets)
+    check(t_gpu == t_cpu == want,
+          f"layer output dtypes: cuda {t_gpu}, cpu {t_cpu}, hemx {want}")
+    check(torch.bfloat16 in want.values(), "no layer computed in bf16")
+    for a, b in zip(b_gpu, b_cpu):
+        check(torch.equal(a, b), "cuda and cpu batches differ")
+    for k in m_cpu:
+        _close(m_gpu[k], m_cpu[k], 3e-2, 0.0, k)
+    worst_abs, worst_excess = _compare_trees(out, dev, 1e-2, 1e-4)
+    print(f"card vs cpu, bf16 + rmsprop (decay 0.9, momentum 0.01): layer "
+          f"dtypes equal and hemx's ({sum(v == torch.bfloat16 for v in want.values())} "
+          f"of {len(want)} layers bf16); losses cuda {m_gpu} cpu {m_cpu} "
+          f"(rtol 3e-2); params and BN stats within rtol 1e-2 / atol 1e-4: "
+          f"max |cuda-cpu| {worst_abs:.3g}, atol needed at rtol 1e-2 "
+          f"{max(worst_excess, 0.0):.3g}", flush=True)
 
 
 def expected_launches(per_epoch: int, group: int, consumed: int) -> int:
@@ -190,20 +301,37 @@ def expected_launches(per_epoch: int, group: int, consumed: int) -> int:
     return launches
 
 
-def phase_full_width(torch, dev, card: str, *, count: int = 4096,
+def full_width_argv(dev, workdir: str, *, count: int, eval_count: int,
+                    image: int, batch: int, latent: int) -> list:
+    return ["--model", "iwgan", "--dataset", "synthetic", "--synthetic_u8",
+            "--synthetic_count", str(count),
+            "--synthetic_eval_count", str(eval_count),
+            "--synthetic_shape", str(image), str(image), "3",
+            "--batch_size", str(batch), "--latent_size", str(latent),
+            "--n_disc_train", "5", "--optimizer", "adam", "--lr", "1e-4",
+            "--beta1", "0.5", "--beta2", "0.9", "--device", str(dev),
+            "--dir", workdir, "--seed", "0"]
+
+
+def run_launches(count: int, eval_count: int, batch: int, calls: int) -> int:
+    """Input-kernel launches of one ``cli.run`` of one epoch of ``calls``
+    calls: the train stream, the summary batch, and one per validation
+    batch."""
+    return (expected_launches(count // batch, 6, calls * 6) + 1
+            + eval_count // batch)
+
+
+def phase_full_width(torch, dev, card: str, workdir: str, *,
+                     count: int = 4096, eval_count: int = 1024,
                      image: int = 64, batch: int = 512, latent: int = 200,
                      calls: int = 8) -> int:
     from hemx_torch import cli
     from hemx_torch.models.gan import IwganModel
     from hemx_torch.ops import input_kernels as K
 
-    argv = ["--model", "iwgan", "--dataset", "synthetic", "--synthetic_u8",
-            "--synthetic_count", str(count),
-            "--synthetic_shape", str(image), str(image), "3",
-            "--batch_size", str(batch), "--latent_size", str(latent),
-            "--n_disc_train", "5", "--optimizer", "adam", "--lr", "1e-4",
-            "--beta1", "0.5", "--beta2", "0.9", "--epochs", "1",
-            "--epoch_size", str(calls), "--device", str(dev), "--seed", "0"]
+    argv = full_width_argv(dev, workdir, count=count, eval_count=eval_count,
+                           image=image, batch=batch, latent=latent)
+    argv += ["--epochs", "1", "--epoch_size", str(calls)]
     K.reset_launches()
     res = cli.run(argv)
     launches = K.LAUNCHES["gather_u8_normalize"]
@@ -211,7 +339,7 @@ def phase_full_width(torch, dev, card: str, *, count: int = 4096,
     check(ts.step == calls, f"step {ts.step} != {calls}")
     check(all(math.isfinite(r[k]) for r in hist for k in ("g_loss", "d_loss")),
           f"non-finite loss in {hist}")
-    want = expected_launches(count // batch, 6, calls * 6)
+    want = run_launches(count, eval_count, batch, calls)
     check(launches == want, f"input kernel launched {launches} times, "
                             f"expected {want}")
     check(all(p.device == dev for p in ts.nets.parameters()),
@@ -236,6 +364,130 @@ def phase_full_width(torch, dev, card: str, *, count: int = 4096,
     return launches
 
 
+def expected_summary_steps(batches: int, start_epoch: int, epochs: int,
+                           start_step: int) -> set:
+    """Steps of the train summaries with losses: hemx's cadence, 10 per
+    epoch for the first 3 epochs, then 3, plus each epoch's end
+    (``hemx/train/loop.py:186-234``)."""
+    steps, step = set(), start_step
+    for epoch in range(start_epoch, start_epoch + epochs):
+        cadence = max(batches // (10 if epoch < 3 else 3), 1)
+        for i in range(batches):
+            step += 1
+            if i % cadence == 0:
+                steps.add(step)
+        steps.add(step)
+    return steps
+
+
+def _trees_equal(a: dict, b: dict) -> bool:
+    import numpy as np
+    from hemx_torch import convert
+    fa, fb = convert.flatten_tree(a), convert.flatten_tree(b)
+    return fa.keys() == fb.keys() and all(
+        np.asarray(fa[k]).dtype == np.asarray(fb[k]).dtype
+        and np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def phase_bf16_run(torch, dev, card: str, workdir: str, *, count: int = 4096,
+                   eval_count: int = 1024, image: int = 64, batch: int = 512,
+                   latent: int = 200, calls: int = 6) -> int:
+    from hemx_torch import cli, convert
+    from hemx_torch.models.gan import IwganModel
+    from hemx_torch.ops import input_kernels as K
+    from hemx_torch.ops.layers import BatchNorm, Conv2d
+    from hemx_torch.summaries.crc32c import masked_crc32c
+    from hemx_torch.summaries.reader import get_all_events, get_tag_values
+    from hemx_torch.train.checkpoint import CheckpointManager
+
+    argv = full_width_argv(dev, workdir, count=count, eval_count=eval_count,
+                           image=image, batch=batch, latent=latent)
+    argv += ["--dtype", "bfloat16", "--epoch_size", str(calls),
+             "--max_to_keep", "2"]
+    seen = {"conv2d output": set(), "batch_norm input": set()}
+
+    def post(m, inp, out):
+        if isinstance(m, Conv2d) and out[0].device.type == dev.type:
+            seen["conv2d output"].add(out[0].dtype)
+
+    def pre(m, inp):
+        if isinstance(m, BatchNorm) and inp[0].device.type == dev.type:
+            seen["batch_norm input"].add(inp[0].dtype)
+
+    hooks = [torch.nn.modules.module.register_module_forward_hook(post),
+             torch.nn.modules.module.register_module_forward_pre_hook(pre)]
+    K.reset_launches()
+    try:
+        res1 = cli.run(argv + ["--epochs", "1"])
+        manager = CheckpointManager(workdir)
+        check([e for e, _ in manager.checkpoints()] == [0, 1],
+              f"after the first run: checkpoints {manager.checkpoints()}")
+        ckpt1 = manager.restore(manager.checkpoints()[-1][1])
+        check(_trees_equal(ckpt1, convert.to_checkpoint(res1["train_state"], 1)),
+              "checkpoint-1 differs from the first run's final state")
+        res2 = cli.run(argv + ["--epochs", "+1"])
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = K.LAUNCHES["gather_u8_normalize"]
+    ts = res2["train_state"]
+    r = res2["resumed"]
+    check(r is not None and r["epoch"] == 1 and r["step"] == calls
+          and r["path"].endswith("checkpoint-1.msgpack"),
+          f"second run resumed from {r}")
+    fresh = IwganModel(res2["args"], dev).init_state((3, image, image), 0)
+    check(convert.load_checkpoint(fresh, ckpt1) == 1
+          and _trees_equal(convert.to_checkpoint(fresh, 1), ckpt1),
+          "restoring checkpoint-1 is not bit-exact (weights, BN stats, Adam "
+          "moments, step, key)")
+    check(ts.step == 2 * calls and res2["epoch"] == 2,
+          f"second run ended at step {ts.step}, epoch {res2['epoch']}")
+    ckpts = [e for e, _ in manager.checkpoints()]
+    check(ckpts == [1, 2], f"after gc: checkpoints {ckpts}")
+    hist = res1["history"] + res2["history"]
+    check(len(hist) == 2 * calls and all(
+        math.isfinite(h[k]) for h in hist for k in ("g_loss", "d_loss")),
+        f"calls {len(hist)}, non-finite loss in {hist}")
+    want = {"train": expected_summary_steps(calls, 0, 2, 0),
+            "validate": {calls, 2 * calls}}
+    for phase, steps in want.items():
+        events = get_all_events(os.path.join(workdir, phase))
+        for tag in ("losses/g_loss", "losses/d_loss"):
+            got = get_tag_values("", tag, events)
+            check({s for s, _ in got} == steps,
+                  f"{phase} {tag} at steps {[s for s, _ in got]}, expected "
+                  f"{sorted(steps)}")
+            check(all(math.isfinite(v) for _, v in got),
+                  f"{phase} {tag} not finite: {got}")
+    check(seen == {"conv2d output": {torch.bfloat16},
+                   "batch_norm input": {torch.bfloat16}},
+          f"compute dtypes on the card: {seen}")
+    want_launches = 2 * run_launches(count, eval_count, batch, calls)
+    check(launches == want_launches, f"input kernel launched {launches} "
+                                     f"times, expected {want_launches}")
+    t = res1["timings"]
+    t2 = res2["timings"]
+    crc_data = bytes(range(256)) * 4096  # 1 MiB
+    t0 = time.perf_counter()
+    masked_crc32c(crc_data)
+    crc_s = time.perf_counter() - t0
+    secs = [h["seconds"] for h in hist]
+    steady = secs[1:calls] + secs[calls + 1:]
+    med = statistics.median(steady)
+    print(f"IWGAN bf16 bs{batch} {image}x{image}x3 latent {latent}, 5+1, Adam, "
+          f"2 runs of {calls} calls on {card}: first calls "
+          f"{secs[0]:.4f} / {secs[calls]:.4f} s, median call {med:.4f} s "
+          f"({len(steady)} steady calls), {batch / med:.1f} images/s; "
+          f"resumed at step {r['step']}, ended at step {ts.step}", flush=True)
+    print(f"checkpoint {t['checkpoint_bytes'][-1]} bytes; save s "
+          f"{[round(x, 4) for x in t['save_s'] + t2['save_s']]}; restore s "
+          f"{[round(x, 4) for x in t2['restore_s']]}; summary write s median "
+          f"{statistics.median(t['summary_s'] + t2['summary_s']):.4f} "
+          f"(n={len(t['summary_s'] + t2['summary_s'])}); pure-Python "
+          f"crc32c {crc_s:.4f} s per MiB", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -248,19 +500,32 @@ def main() -> int:
               "a hemx checkout", file=sys.stderr)
         return 1
     dev = torch.device("cuda:0")
-    print("== phase 1: card", flush=True)
-    card = phase_card(torch)
-    print("== phase 2: kernel vs plain", flush=True)
-    kern = phase_kernel(torch, dev)
-    print("== phase 3: card vs cpu, small size", flush=True)
-    phase_card_vs_cpu(torch, dev)
-    print("== phase 4: the slice at full width", flush=True)
-    launches = phase_full_width(torch, dev, card)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        print("== phase 1: card", flush=True)
+        card = phase_card(torch)
+        print("== phase 2: kernel vs plain", flush=True)
+        kern = phase_kernel(torch, dev)
+        print("== phase 3: card vs cpu, small size", flush=True)
+        phase_card_vs_cpu(torch, dev)
+        print("== phase 4: the slice at full width", flush=True)
+        launches = phase_full_width(torch, dev, card,
+                                    os.path.join(workdir, "f32"))
+        print("== phase 5: card vs cpu, bf16 + rmsprop, small size",
+              flush=True)
+        phase_bf16_card_vs_cpu(torch, dev)
+        print("== phase 6: the whole bf16 run at full width, with resume",
+              flush=True)
+        launches_bf16 = phase_bf16_run(torch, dev, card,
+                                       os.path.join(workdir, "bf16"))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"kernels": [{
         "name": "gather_u8_normalize", "route": "triton",
         "source": "hemx_torch/ops/input_kernels.py",
         "replaces": "hemx/ops/pallas_kernels.py:75",
-        "launches": launches, **kern}]}), flush=True)
+        "launches": launches, "launches_bf16_run": launches_bf16, **kern}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,7 @@
 The JAX package ``hemx`` is the reference; every module here mirrors the
 ``hemx`` module of the same name and is held against it by the CPU tests
 (``tests/test_torch_*.py``). The package imports ``torch`` and numpy only —
-never ``jax``, ``flax``, ``optax`` or ``hemx`` — and Triton only inside the
+never ``jax``, ``flax``, ``optax``, ``msgpack`` or ``hemx`` — and Triton only inside the
 CUDA launch path, so ``import hemx_torch`` works on a machine without a GPU.
 
 Nothing is imported eagerly: import the submodule you need

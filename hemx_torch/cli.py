@@ -1,11 +1,15 @@
 """hemx_torch training CLI (counterpart of ``train.py``).
 
     python -m hemx_torch.cli --model iwgan --dataset synthetic --synthetic_u8 \\
-        --optimizer adam --lr 1e-4 --beta1 0.5 --beta2 0.9 --batch_size 512
+        --dtype bfloat16 --dir workspace/iwgan
+    python -m hemx_torch.cli ... --dir workspace/iwgan --epochs +1   # resume
 
 Flags are ``hemx``'s (see ``hemx_torch.config``) plus ``--device``
-(default ``cuda``). The last line of standard output is a JSON summary:
-device, final step, call count, median call time and images/s.
+(default ``cuda``); the workspace (checkpoints, events, options) has
+``train.py``'s layout and formats. The last line of standard output is a
+JSON summary: device, final step and epoch, call count, median call time
+and images/s. A non-finite gradient under ``--check_numerics`` exits 255,
+as ``train.py`` does.
 """
 
 from __future__ import annotations
@@ -57,6 +61,9 @@ def run(argv=None) -> dict:
 def main(argv=None) -> int:
     try:
         run(argv)
+    except FloatingPointError as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 255
     except (CliError, NotImplementedError) as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return getattr(e, "code", 1)

@@ -4,14 +4,18 @@ Every flag the port reads has ``hemx.config``'s name and default (pinned by
 ``tests/test_torch_cli.py``); ``--device`` is new. Parsing is ``hemx``'s
 three phases — general flags, then the dataset's, then the model's — and
 flags the port does not read are reported and ignored, as ``hemx`` does
-with unknown flags.
+with unknown flags. ``init_working_dir`` writes the resolved options to
+``<dir>/options.config`` (re-ingestable with ``@file`` by ``train.py``) and
+``<dir>/options.json``, as ``hemx.config.init_working_dir`` does.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
+import uuid
 
 
 def build_base_parser() -> argparse.ArgumentParser:
@@ -22,22 +26,53 @@ def build_base_parser() -> argparse.ArgumentParser:
     misc = parser.add_argument_group("Miscellaneous")
     misc.add_argument("--seed", type=int, default=None,
                       help="RNG seed; randomized each run when unset.")
-    misc.add_argument("--model", type=str.lower, default="cnn",
-                      help="Model plugin to train.")
     misc.add_argument("--device", default="cuda",
                       help="torch device to train on ('cuda', 'cuda:1', "
                            "'cpu'); a CUDA device that is absent is an error.")
+    misc.add_argument("--profile", action="store_true", default=False,
+                      help="Record a torch.profiler trace of up to ten train "
+                           "calls of the first epoch into <dir>/profile.")
+    misc.add_argument("--check_numerics", action="store_true", default=False,
+                      help="Check gradients for NaN/Inf every call and exit "
+                           "nonzero naming the parameter.")
+    misc.add_argument("--summarize_activations", action="store_true",
+                      default=False,
+                      help="Write per-layer activation mean/zero-fraction/"
+                           "histogram at every summary write.")
+    misc.add_argument("--summarize_gradients", action="store_true",
+                      default=False,
+                      help="Write per-variable gradient mean + histogram at "
+                           "every summary write.")
+    misc.add_argument("--summarize_weights", action="store_true", default=False,
+                      help="Write per-parameter histograms + means at each "
+                           "epoch end.")
+    misc.add_argument("--model", type=str.lower, default="cnn",
+                      help="Model plugin to train.")
+    misc.add_argument("--examples", type=int, default=64,
+                      help="Number of example images in montage summaries.")
 
     train = parser.add_argument_group("Training")
     train.add_argument("--epochs", default="3",
-                       help="Epochs this run (+n is n: the port has no "
-                            "checkpoints to resume from yet).")
+                       help="Epochs this run: integer for max, or +n for n "
+                            "more from checkpoint.")
     train.add_argument("--batch_size", type=int, default=256)
     train.add_argument("--epoch_size", type=int, default=-1,
                        help="Train calls per epoch (-1 = full dataset).")
+    train.add_argument("--dir", type=str, default=None,
+                       help="Workspace dir (checkpoints, events, "
+                            "options.config); workspace/<uuid4> when unset. "
+                            "A populated dir resumes training.")
+    train.add_argument("--max_to_keep", type=int, default=0,
+                       help="Recent checkpoints to keep; 0 keeps all.")
+    train.add_argument("--test_epochs", nargs="*", type=int, default=[],
+                       help="Epochs at which to run the test split.")
+    train.add_argument("--summary_freq", type=int, default=0,
+                       help="Summaries per epoch (0 = reference cadence: "
+                            "10x/epoch first 3 epochs then 3x/epoch).")
     train.add_argument("--dtype", type=str.lower, default="float32",
                        choices=["float32", "bfloat16"],
-                       help="Compute dtype; only float32 is ported.")
+                       help="Compute dtype of every conv, deconv and dense "
+                            "(params stay float32).")
     train.add_argument("--precision", type=str.lower, default="default",
                        choices=["default", "high", "highest"],
                        help="'default'/'high' allow TF32 in cuBLAS and "
@@ -46,6 +81,9 @@ def build_base_parser() -> argparse.ArgumentParser:
     opt = parser.add_argument_group("Optimizer")
     opt.add_argument("--optimizer", type=str.lower, default="rmsprop")
     opt.add_argument("--lr", type=float, default=0.001)
+    opt.add_argument("--momentum", type=float, default=0.01)
+    opt.add_argument("--decay", type=float, default=0.9)
+    opt.add_argument("--centered", action="store_true", default=False)
     opt.add_argument("--beta1", type=float, default=0.9)
     opt.add_argument("--beta2", type=float, default=0.999)
 
@@ -76,6 +114,49 @@ def parse_args(argv=None):
     if leftover:
         print(f"WARNING: unknown and unused arguments provided: {leftover}",
               file=sys.stderr)
+    # BooleanOptionalAction flags are dumped in their no- form when False
+    args._negatable = {a.dest for a in parser._actions
+                       if isinstance(a, argparse.BooleanOptionalAction)}
     if args.seed is None:
         args.seed = int.from_bytes(os.urandom(4), "little")
+    if args.dir is None:
+        args.dir = os.path.join("workspace", str(uuid.uuid4()))
     return args
+
+
+def init_working_dir(args) -> str:
+    """Create the workspace and dump the resolved options."""
+    os.makedirs(args.dir, exist_ok=True)
+    dump_options(args, os.path.join(args.dir, "options.config"))
+    with open(os.path.join(args.dir, "options.json"), "w") as f:
+        json.dump({k: _jsonable(v) for k, v in vars(args).items()
+                   if not k.startswith("_")}, f, indent=2, sort_keys=True)
+    return args.dir
+
+
+def dump_options(args, path: str) -> None:
+    negatable = getattr(args, "_negatable", {"shuffle", "device_data_cache"})
+    with open(path, "w") as f:
+        f.write("# hemx resolved options (re-ingestable with @thisfile)\n")
+        for k in sorted(vars(args)):
+            if k.startswith("_"):
+                continue
+            v = getattr(args, k)
+            if isinstance(v, bool):
+                if v:
+                    f.write(f"{k}\n")
+                elif k in negatable:
+                    f.write(f"no-{k}\n")
+            elif isinstance(v, (list, tuple)):
+                if v:
+                    f.write(f"{k} {' '.join(str(i) for i in v)}\n")
+            elif v is not None:
+                f.write(f"{k} {v}\n")
+
+
+def _jsonable(v):
+    if isinstance(v, (str, int, float, bool, type(None))):
+        return v
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(i) for i in v]
+    return str(v)

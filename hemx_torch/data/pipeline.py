@@ -125,6 +125,10 @@ class DeviceDataPipeline:
         out = v.index_select(0, idx)
         return out.permute(0, 3, 1, 2) if out.dim() == 4 else out
 
+    def batch(self, idx: np.ndarray) -> dict:
+        """One device batch of the dataset rows ``idx``."""
+        return self._assemble(idx, 1)[0]
+
     def _assemble(self, idx: np.ndarray, parts: int) -> list[dict]:
         i = torch.from_numpy(np.asarray(idx, np.int32)).to(self.device)
         gathered = {k: self._gather(k, i) for k in self.ds}

@@ -1,8 +1,9 @@
 """Synthetic in-memory dataset (counterpart of ``hemx.data.synthetic``).
 
 A numpy copy of ``hemx``'s ``_make_images`` and of its uint8 rounding,
-pinned equal to the original by ``tests/test_torch_data.py``. Only the
-``image`` key and the ``train`` split are built (the IWGAN slice reads
+pinned equal to the original by ``tests/test_torch_data.py``. The train,
+validate and test splits are seeded ``seed``, ``seed + 1`` and ``seed + 2``
+as in ``hemx``; only the ``image`` key is built (the IWGAN slice reads
 nothing else).
 """
 
@@ -57,6 +58,10 @@ class SyntheticDataset:
                                       help="Samples in the train split."),
             "--synthetic_shape": dict(type=int, nargs=3, default=[64, 64, 3],
                                       help="H W C of generated images."),
+            "--synthetic_eval_count": dict(
+                type=int, default=0,
+                help="Samples in validate/test splits (0 = same as "
+                     "--synthetic_count)."),
             "--synthetic_u8": dict(
                 action="store_true", default=False,
                 help="Store images as uint8 and normalize on the device "
@@ -65,16 +70,21 @@ class SyntheticDataset:
 
     @classmethod
     def get_datasets(cls, args) -> dict:
-        """{"train": Split} with the ``image`` key, seeded by ``args.seed``
-        exactly as ``hemx``'s train split."""
+        """{"train", "validate", "test": Split} with the ``image`` key, each
+        equal to ``hemx``'s split of the same name."""
         h, w, c = args.synthetic_shape
-        images = _make_images(args.synthetic_count, h, w, c, seed=args.seed)
-        dt = None
-        if args.synthetic_u8:
-            images = to_u8(images)
-            dt = U8Normalize(keys=("image",))
-        return {"train": Split(ArraySource({"image": images}),
-                               device_transform=dt)}
+        n_eval = getattr(args, "synthetic_eval_count", 0) or args.synthetic_count
+        splits = {}
+        for i, name in enumerate(("train", "validate", "test")):
+            n = args.synthetic_count if name == "train" else n_eval
+            images = _make_images(n, h, w, c, seed=args.seed + i)
+            dt = None
+            if args.synthetic_u8:
+                images = to_u8(images)
+                dt = U8Normalize(keys=("image",))
+            splits[name] = Split(ArraySource({"image": images}),
+                                 device_transform=dt)
+        return splits
 
 
 _DATASETS = {"synthetic": SyntheticDataset}

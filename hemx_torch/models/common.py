@@ -1,24 +1,36 @@
 """Shared training-state machinery (counterpart of ``hemx.models.common``).
 
-The train state holds what ``hemx``'s dict pytree holds — ``params`` and
-``mstate`` (the parameters and BN buffers of ``nets``; ``hemx_torch.convert``
-turns them into ``hemx``'s pytrees), ``opt``, ``step`` and the random
-source — but as live PyTorch objects that the train call updates in
-place. ``step`` increments once per train call (critic substeps
-keep it fixed), as in ``hemx``.
+The train state holds what ``hemx``'s dict pytree holds — the parameters
+and BN buffers of ``nets``, ``opt``, ``step`` and ``rng`` — as live PyTorch
+objects that the train call updates in place; ``hemx_torch.convert`` turns
+it into ``hemx``'s checkpoint tree and back. ``step`` increments once per
+train call (critic substeps keep it fixed), as in ``hemx``.
 
-Random numbers: JAX's threefry key chain cannot be reproduced in PyTorch,
-so noise comes from the state's own ``torch.Generator`` unless the caller
-passes it in (the noise seam of ``IwganModel.train``); equality tests
-draw it with ``jax.random`` and hand it over.
+Random numbers. ``rng`` is hemx's uint32[2] key: the port writes
+``[seed >> 32, seed & 0xffffffff]``, which equals
+``jax.random.PRNGKey(seed)``, and keeps it; a key read from a hemx
+checkpoint (which hemx advances every substep) is kept as read. Each train
+call, eval call and summary sample draws its noise from a fresh
+``torch.Generator`` seeded from ``(key words, step, stream)``, so the noise
+is a function of the checkpointed state and a resumed run draws what an
+uninterrupted one would. The stream is the port's own, not JAX's threefry
+(which PyTorch cannot reproduce); equality tests draw noise with
+``jax.random`` and pass it through the noise seam (``train(ts, stream,
+noise)``, ``eval_losses(ts, batch, noise)``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn as nn
+
+from hemx_torch.convert import jax_view
+
+# noise streams drawn at one (key, step)
+TRAIN, EVAL, SAMPLE, REPORT = range(4)
 
 
 @dataclasses.dataclass
@@ -26,26 +38,114 @@ class TrainState:
     nets: nn.ModuleDict
     opt: dict
     step: int
-    rng: torch.Generator
+    rng: np.ndarray  # uint32[2], jax.random.PRNGKey's layout
 
 
-def new_train_state(nets: nn.ModuleDict, opt: dict, seed: int,
-                    device: torch.device) -> TrainState:
-    rng = torch.Generator(device=device)
-    rng.manual_seed(seed)
-    return TrainState(nets=nets, opt=opt, step=0, rng=rng)
+def prng_key(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)`` for a seed in [0, 2**64)."""
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
 
 
-def draw_noise(ts: TrainState, batch: int, latent: int, *,
+def new_train_state(nets: nn.ModuleDict, opt: dict, seed: int) -> TrainState:
+    return TrainState(nets=nets, opt=opt, step=0, rng=prng_key(seed))
+
+
+def generator(ts: TrainState, stream: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from the state's key, its step and
+    ``stream``."""
+    words = [int(w) for w in ts.rng] + [ts.step, stream]
+    seed = int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0])
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def draw_noise(gen: torch.Generator, batch: int, latent: int, *,
                alpha: bool) -> dict:
-    """One substep's noise from the state's generator: ``z`` (B, latent)
-    standard normal, plus the GP's ``alpha`` (B, 1) uniform for a critic
-    substep (``hemx/models/gan.py:229-231,254,289-291``)."""
-    dev = ts.rng.device
-    out = {"z": torch.randn((batch, latent), generator=ts.rng, device=dev)}
+    """One substep's noise: ``z`` (B, latent) standard normal, plus the GP's
+    ``alpha`` (B, 1) uniform for a critic substep
+    (``hemx/models/gan.py:229-231,254,289-291``)."""
+    dev = gen.device
+    out = {"z": torch.randn((batch, latent), generator=gen, device=dev)}
     if alpha:
-        out["alpha"] = torch.rand((batch, 1), generator=ts.rng, device=dev)
+        out["alpha"] = torch.rand((batch, 1), generator=gen, device=dev)
     return out
+
+
+def grad_finite_report(prefix: str, net: nn.Module, grads) -> dict:
+    """Per-parameter finite-ness flags (0-d bool tensors on the device),
+    named by hemx's tree path, e.g. ``d/c1/w`` (``--check_numerics``)."""
+    return {f"{prefix}/{n.replace('.', '/')}": torch.isfinite(g).all()
+            for (n, _), g in zip(net.named_parameters(), grads)}
+
+
+def and_flags(flags: dict, new: dict) -> dict:
+    """AND finite-ness flags of several substeps, key by key."""
+    return {**flags, **{k: flags[k] & v if k in flags else v
+                        for k, v in new.items()}}
+
+
+def raise_on_bad_grads(metrics: dict) -> None:
+    """Raise FloatingPointError naming every parameter whose gradient had a
+    NaN or Inf (the host side of ``--check_numerics``)."""
+    bad = [n for n, ok in metrics.get("grad_finite", {}).items() if not ok]
+    if bad:
+        raise FloatingPointError(
+            "GRADIENT ERROR (NaN/Inf) on parameter(s): " + ", ".join(sorted(bad)))
+
+
+def grad_norm(grads) -> torch.Tensor:
+    """Global L2 norm of a sequence of gradients (``optax.global_norm``)."""
+    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+
+
+def host_scalars(metrics: dict) -> dict:
+    """Metrics to host floats, and ``grad_finite`` flags to bools, in one
+    device-to-host copy."""
+    flags = metrics.get("grad_finite", {})
+    keys = [k for k in metrics if k != "grad_finite"]
+    vals = [metrics[k].float().reshape(()) for k in keys]
+    vals += [f.float().reshape(()) for f in flags.values()]
+    host = torch.stack(vals).cpu().tolist() if vals else []
+    out = dict(zip(keys, host))
+    if flags:
+        out["grad_finite"] = {n: v == 1.0
+                              for n, v in zip(flags, host[len(keys):])}
+    return out
+
+
+def summarizable_stats(tree: dict, max_sample: int = 65536) -> dict:
+    """Per-tensor summary stats for ``--summarize_activations`` and
+    ``--summarize_gradients``: mean, zero fraction and the first
+    ``max_sample`` values, reduced on the device. Tensors come in hemx's
+    layout (NHWC activations, hemx-layout gradients) so the sample is the
+    same slice hemx takes."""
+    out = {}
+    for name, t in tree.items():
+        v = t.detach().reshape(-1).float()
+        out[name] = {"mean": v.mean(), "zero_fraction": (v == 0).float().mean(),
+                     "sample": v[:max_sample]}
+    return out
+
+
+def write_stat_summaries(writer, step: int, stats: dict, prefix: str) -> None:
+    """Write :func:`summarizable_stats` under hemx's tag names."""
+    for name, s in stats.items():
+        writer.scalar(f"{prefix}/{name}/mean", float(s["mean"]), step)
+        writer.scalar(f"{prefix}/{name}/zero_fraction",
+                      float(s["zero_fraction"]), step)
+        writer.histogram(f"{prefix}/{name}", s["sample"].cpu().numpy(), step)
+
+
+def grads_by_path(prefix: str, net: nn.Module, grads) -> dict:
+    """``{prefix/layer/leaf: gradient in hemx layout}``."""
+    return {f"{prefix}/{n.replace('.', '/')}": jax_view(net, n, g)
+            for (n, _), g in zip(net.named_parameters(), grads)}
+
+
+def nhwc(t: torch.Tensor) -> torch.Tensor:
+    """An activation in hemx's layout (NCHW -> NHWC; 2-D unchanged)."""
+    return t.permute(0, 2, 3, 1) if t.dim() == 4 else t
 
 
 class Unflatten(nn.Module):

@@ -4,7 +4,11 @@ A model is constructed as ``Model(args, device)``, then:
 
 * ``init_state(image_shape, seed) -> TrainState``;
 * ``train(train_state, stream) -> (train_state, metrics)`` — may pull
-  several batches from ``stream`` (``batches_per_train_call()`` of them).
+  several batches from ``stream`` (``batches_per_train_call()`` of them);
+* ``eval_losses(train_state, batch) -> metrics`` (validation and test);
+* ``write_summaries(writer, step, train_state, batch)``, and for
+  ``--summarize_activations`` / ``--summarize_gradients``
+  ``capture_activations`` / ``grad_report`` (stats per tensor).
 
 Only ``iwgan`` is ported; the registry is an explicit table rather than
 ``hemx``'s package scan.

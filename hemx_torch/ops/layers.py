@@ -20,6 +20,23 @@ Hazards reproduced from ``hemx`` (each gives right shapes, wrong values):
   the full transpose; the extra ``hi - lo`` rows/cols are cropped after.
 * BN is hand-written: decay 0.999, eps 1e-3, beta only, batch statistics,
   and the moving variance is the *biased* one.
+
+Compute dtype (``--dtype bfloat16``): hemx rounds at fixed points instead of
+autocasting, and the port rounds at the same ones. The dtype is a
+constructor argument of each layer (hemx keeps it in a process global,
+``hemx.ops.layers.set_compute_dtype``):
+
+* conv, deconv and dense cast their input and weight to it
+  (``_cast_in``, ``hemx/ops/layers.py:78-83``); the product comes out in it
+  (bf16 with f32 accumulation), and the bias is added after being cast to
+  the product's dtype (``:399-401,451,509``);
+* BN's batch mean and variance of a bf16 input are bf16 and the
+  normalized value stays bf16 until ``+ beta`` (f32) promotes it: a layer
+  with BN outputs f32, one without outputs bf16; the moving stats are f32
+  (``:274-300``).
+
+Autocast would keep BN and reductions in f32 and fuse the bias into the
+conv, which rounds elsewhere. Parameters (master weights) stay f32.
 """
 
 from __future__ import annotations
@@ -51,6 +68,16 @@ def same_padding(in_dim: int, k: int, s: int) -> tuple[int, int]:
     """XLA/TF SAME padding (lo, hi) for one spatial dim."""
     total = max((math.ceil(in_dim / s) - 1) * s + k - in_dim, 0)
     return total // 2, total - total // 2
+
+
+def cast_in(x: torch.Tensor, w: torch.Tensor, dtype: Optional[torch.dtype]):
+    """``hemx.ops.layers._cast_in``: under a compute dtype both operands go
+    to it; otherwise ``x`` follows ``w``'s dtype."""
+    if dtype is not None:
+        return x.to(dtype), w.to(dtype)
+    if x.dtype != w.dtype:
+        return x.to(w.dtype), w
+    return x, w
 
 
 def conv2d_op(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
@@ -122,7 +149,7 @@ class _Layer(nn.Module):
     norm_name = "norm0"
 
     def _post(self, y: torch.Tensor, bias_shape):
-        y = y + self.b.view(bias_shape)
+        y = y + self.b.view(bias_shape).to(y.dtype)
         stats = {}
         norm = getattr(self, self.norm_name, None)
         if norm is not None:
@@ -140,8 +167,10 @@ class Dense(_Layer):
 
     def __init__(self, in_features: int, out_features: int, *,
                  generator: torch.Generator, use_batch_norm: bool = False,
-                 activation: Optional[Callable] = None):
+                 activation: Optional[Callable] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         w = xavier_uniform((in_features, out_features), generator=generator)
         self.w = nn.Parameter(w.t().contiguous())
         self.b = nn.Parameter(xavier_uniform((out_features,), generator=generator))
@@ -150,7 +179,8 @@ class Dense(_Layer):
         self.activation = activation
 
     def forward(self, x):
-        return self._post(F.linear(x, self.w), (1, -1))
+        y = F.linear(*cast_in(x, self.w, self.compute_dtype))
+        return self._post(y, (1, -1))
 
 
 class Conv2d(_Layer):
@@ -158,8 +188,10 @@ class Conv2d(_Layer):
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int, *,
                  generator: torch.Generator, use_batch_norm: bool = False,
-                 activation: Optional[Callable] = None):
+                 activation: Optional[Callable] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         w = xavier_uniform((k, k, in_ch, out_ch), generator=generator)
         self.w = nn.Parameter(w.permute(3, 2, 0, 1).contiguous(memory_format=CL))
         self.b = nn.Parameter(xavier_uniform((out_ch,), generator=generator))
@@ -169,7 +201,8 @@ class Conv2d(_Layer):
         self.activation = activation
 
     def forward(self, x):
-        return self._post(conv2d_op(x, self.w, self.stride), (1, -1, 1, 1))
+        y = conv2d_op(*cast_in(x, self.w, self.compute_dtype), self.stride)
+        return self._post(y, (1, -1, 1, 1))
 
 
 class Deconv2d(_Layer):
@@ -179,8 +212,10 @@ class Deconv2d(_Layer):
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int, *,
                  generator: torch.Generator, use_batch_norm: bool = False,
-                 activation: Optional[Callable] = None):
+                 activation: Optional[Callable] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         w = xavier_uniform((k, k, out_ch, in_ch), generator=generator)
         self.w = nn.Parameter(w.permute(3, 2, 0, 1).contiguous(memory_format=CL))
         self.b = nn.Parameter(xavier_uniform((out_ch,), generator=generator))
@@ -191,7 +226,8 @@ class Deconv2d(_Layer):
 
     def forward(self, x):
         out_hw = (x.shape[2] * self.stride, x.shape[3] * self.stride)
-        y = deconv2d_op(x, self.w, out_hw, self.stride)
+        x, w = cast_in(x, self.w, self.compute_dtype)
+        y = deconv2d_op(x, w, out_hw, self.stride)
         return self._post(y, (1, -1, 1, 1))
 
 
@@ -205,16 +241,20 @@ class Flatten(nn.Module):
 
 class Sequential(nn.Module):
     """Named layers applied in order; collects every child's BN stats under
-    the child's name (``hemx.core.sequential``)."""
+    the child's name (``hemx.core.sequential``). With a ``capture`` dict,
+    each child's output is also stored there under the child's name (the
+    ``Ctx(capture=True)`` intermediates of ``hemx.core``)."""
 
     def __init__(self, layers: dict):
         super().__init__()
         for name, layer in layers.items():
             self.add_module(name, layer)
 
-    def forward(self, x):
+    def forward(self, x, capture: Optional[dict] = None):
         stats = {}
         for name, layer in self.named_children():
             x, s = layer(x)
             stats.update({f"{name}.{k}": v for k, v in s.items()})
+            if capture is not None:
+                capture[name] = x
         return x, stats

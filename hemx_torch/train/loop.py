@@ -1,80 +1,253 @@
-"""Training loop of the slice (counterpart of ``hemx.train.loop``).
+"""Training loop (counterpart of ``hemx.train.loop``).
 
-Epochs of ``batches`` train calls over one continuous stream of device
-batches (the reference's ``repeat()``): a model may pull several batches
-per call, so an epoch is a number of calls, not of pipeline batches
-(``--epoch_size`` caps it). Each call's losses and wall time are recorded;
-the time is taken on the host clock around the call and a device
-synchronize, so it covers the call's device work.
+Semantics, as in ``hemx``:
 
-Not ported yet: checkpoints and resume, summaries, validation and test
-passes, the streaming host pipeline, profiling.
+* ``--epochs n`` trains to epoch n; ``--epochs +n`` trains n more from the
+  restored epoch; a ``--dir`` that holds checkpoints resumes from the
+  latest;
+* a baseline checkpoint and summary at step 0 before any training;
+* summaries 10 times per epoch for the first 3 epochs, then 3 times
+  (``--summary_freq`` overrides), plus one at each epoch end;
+* one checkpoint per epoch, keyed by the epoch counter;
+* a validation pass after every epoch, the test split at ``--test_epochs``;
+* ``--check_numerics``: the first non-finite gradient raises
+  FloatingPointError (the CLI exits nonzero, so a restart loop such as
+  ``repeat.sh`` resumes from the last checkpoint);
+* ``--profile``: a ``torch.profiler`` trace of up to ten calls of the first
+  epoch, written under ``<dir>/profile``.
+
+The data stream is continuous across epochs (the reference's ``repeat()``)
+and restarts at the data epoch of the restored training epoch, as in
+hemx: a model may pull several batches per call, so an epoch is a number of
+calls (``--epoch_size`` caps it), not of pipeline batches.
+
+Each call's losses and wall time are recorded; the time is taken on the
+host clock around the train call and a device synchronize, so it covers the
+call's device work and nothing else (summaries, checkpoints and validation
+are timed apart, in ``timings``).
 """
 
 from __future__ import annotations
 
+import os
 import statistics
 import time
 
+import numpy as np
 import torch
 
+from hemx_torch import convert
+from hemx_torch.config import init_working_dir
 from hemx_torch.data.pipeline import DeviceDataPipeline
+from hemx_torch.models import common
+from hemx_torch.summaries.events import SummaryWriterSet
+from hemx_torch.train.checkpoint import CheckpointManager
+from hemx_torch.utils import terminal as term
+from hemx_torch.utils.terminal import MovingAverage
+
+try:
+    from tqdm import tqdm
+except ImportError:  # pragma: no cover
+    tqdm = None
 
 
-def _continuous_stream(pipeline: DeviceDataPipeline):
-    e = 0
+def _continuous_stream(pipeline: DeviceDataPipeline, start_epoch: int = 0):
+    e = start_epoch
     while True:
         yield from pipeline.epoch(e)
         e += 1
 
 
-def train(model, splits, args, device) -> dict:
-    """Train ``model`` on ``splits["train"]`` per ``args``. Returns
-    {"train_state", "history" (per call: losses and "seconds"),
-    "pipeline"}."""
-    device = torch.device(device)
-    global_batch = args.batch_size
-    split = splits["train"]
-    batches = split.batches_per_epoch(global_batch)
-    if args.epoch_size > 0:
-        batches = min(batches, args.epoch_size)
-    if batches == 0:
-        raise ValueError(f"dataset ({split.count}) smaller than one global "
-                         f"batch ({global_batch})")
+def _pipeline(split, args, device, keys, *, shuffle: bool, seed: int,
+              group: int = 1) -> DeviceDataPipeline:
     pipeline = None
     if args.device_data_cache:
         pipeline = DeviceDataPipeline.maybe(
-            split, global_batch, device=device, keys=model.batch_keys,
-            shuffle=args.shuffle, seed=args.seed,
-            budget_mb=args.device_cache_mb,
-            group=model.batches_per_train_call())
+            split, args.batch_size, device=device, keys=keys, shuffle=shuffle,
+            seed=seed, budget_mb=args.device_cache_mb, group=group)
     if pipeline is None:
         raise NotImplementedError(
             "the dataset does not fit --device_cache_mb (or "
             "--no-device_data_cache was given); the streaming host pipeline "
-            "is not ported to hemx_torch yet (ROADMAP queue 1 item 5)")
+            "is not ported to hemx_torch yet (ROADMAP: the streaming "
+            "Pipeline)")
+    return pipeline
 
-    h, w, c = split.source.arrays["image"].shape[1:]
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(model, splits, args, device) -> dict:
+    """Train ``model`` on ``splits`` per ``args``. Returns {"train_state",
+    "epoch", "history" (per call of this run: losses and "seconds"),
+    "pipeline", "resumed" (None, or the restored checkpoint's path, epoch
+    and step), "timings" (seconds of each checkpoint save, restore and
+    summary write, and checkpoint bytes)}."""
+    device = torch.device(device)
+    split = splits["train"]
+    batches = split.batches_per_epoch(args.batch_size)
+    if args.epoch_size > 0:
+        batches = min(batches, args.epoch_size)
+    if batches == 0:
+        raise ValueError(f"dataset ({split.count}) smaller than one global "
+                         f"batch ({args.batch_size})")
+    pipeline = _pipeline(split, args, device, model.batch_keys,
+                         shuffle=args.shuffle, seed=args.seed,
+                         group=model.batches_per_train_call())
+    init_working_dir(args)
+    ckpt = CheckpointManager(args.dir, args.max_to_keep)
+    writers = SummaryWriterSet(args.dir)
+    try:
+        return _train(model, splits, args, device, pipeline, batches, ckpt,
+                      writers)
+    finally:
+        writers.close()
+
+
+def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
+    timings = {"save_s": [], "restore_s": [], "summary_s": [],
+               "checkpoint_bytes": []}
+    summary_batch = pipeline.batch(np.arange(args.batch_size))
+    h, w, c = splits["train"].source.arrays["image"].shape[1:]
     ts = model.init_state((c, h, w), args.seed)
-    epochs = int(str(args.epochs).lstrip("+"))
-    stream = _continuous_stream(pipeline)
+
+    def save(epoch: int) -> None:
+        t0 = time.perf_counter()
+        path = ckpt.save(convert.to_checkpoint(ts, epoch), epoch)
+        timings["save_s"].append(time.perf_counter() - t0)
+        timings["checkpoint_bytes"].append(os.path.getsize(path))
+
+    current_epoch, resumed = 0, None
+    latest = ckpt.latest()
+    if latest:
+        t0 = time.perf_counter()
+        current_epoch = convert.load_checkpoint(ts, ckpt.restore(latest))
+        _sync(device)
+        timings["restore_s"].append(time.perf_counter() - t0)
+        resumed = {"path": latest, "epoch": current_epoch, "step": ts.step}
+        term.message(f"Resumed from {latest} (epoch {current_epoch}, step "
+                     f"{ts.step})")
+    epochs = str(args.epochs)
+    max_epochs = (current_epoch + int(epochs[1:]) if epochs.startswith("+")
+                  else int(epochs))
+    stream = _continuous_stream(pipeline, current_epoch)
+
+    def write_train_summary(step: int, metrics: dict | None = None,
+                            end_of_epoch: bool = False) -> None:
+        t0 = time.perf_counter()
+        wr = writers["train"]
+        if metrics:
+            wr.scalars({f"losses/{k}": v for k, v in metrics.items()
+                        if k != "grad_finite"}, step)
+        model.write_summaries(wr, step, ts, summary_batch)
+        if args.summarize_activations:
+            common.write_stat_summaries(
+                wr, step, model.capture_activations(ts, summary_batch),
+                "activations")
+        if args.summarize_gradients:
+            common.write_stat_summaries(
+                wr, step, model.grad_report(ts, summary_batch), "gradients")
+        if end_of_epoch and args.summarize_weights:
+            params, _ = convert.to_jax(ts.nets)
+            for path, leaf in convert.flatten_tree(params).items():
+                name = "/".join(path)
+                wr.histogram(f"weights/{name}", leaf, step)
+                wr.scalar(f"weights_mean/{name}", float(leaf.mean()), step)
+        timings["summary_s"].append(time.perf_counter() - t0)
+
+    if ts.step == 0 and current_epoch == 0:
+        term.message("Generating baseline summaries and checkpoint...")
+        save(0)
+        write_train_summary(0)
+
+    prof = None
     history = []
-    for epoch in range(epochs):
-        for _ in range(batches):
+    term.message("Starting training...")
+    for epoch in range(current_epoch, max_epochs):
+        iterator = range(batches)
+        if tqdm is not None:
+            iterator = tqdm(iterator, desc=f"Epoch {epoch + 1:3d}",
+                            unit="batch", leave=False)
+        avg, shown, running = MovingAverage(), {}, {}
+        per_epoch = args.summary_freq or (10 if epoch < 3 else 3)
+        cadence = max(batches // per_epoch, 1)
+        # hemx fetches losses every few calls (each fetch is a round trip
+        # to its TPU) and averages only those; the port reads every call
+        # for its history but averages the same calls
+        fetch_every = 1 if args.check_numerics else min(cadence, 4)
+        prof_start = min(10, max(batches - 2, 0))
+        prof_stop = min(prof_start + 10, batches - 1)
+        for i in iterator:
+            if args.profile and epoch == current_epoch and i == prof_start:
+                prof = _start_profile(device)
             t0 = time.perf_counter()
             ts, metrics = model.train(ts, stream)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            _sync(device)
             seconds = time.perf_counter() - t0
-            history.append({**{k: float(v) for k, v in metrics.items()},
-                            "seconds": seconds})
+            if prof is not None and i == prof_stop:
+                _stop_profile(prof, args.dir)
+                prof = None
+            host = common.host_scalars(metrics)
+            if args.check_numerics:
+                common.raise_on_bad_grads(host)
+            losses = {k: v for k, v in host.items() if k != "grad_finite"}
+            history.append({**losses, "seconds": seconds})
+            if i % fetch_every == 0 or i % cadence == 0 or i == batches - 1:
+                running = avg.update(losses)
+                if tqdm is not None:
+                    iterator.set_postfix(term.delta_postfix(running, shown))
+                    shown = dict(running)
+            if i % cadence == 0:
+                write_train_summary(ts.step, host)
         recent = history[-batches:]
-        losses = ", ".join(f"{k}={statistics.fmean(r[k] for r in recent):.5g}"
-                           for k in recent[-1] if k != "seconds")
         med = statistics.median(r["seconds"] for r in recent)
-        print(f"Epoch {epoch + 1:3d}: {losses}, median call {med:.4f} s "
-              f"({device})", flush=True)
-    return {"train_state": ts, "history": history, "pipeline": pipeline}
+        term.message(f"Epoch {epoch + 1:3d}: " + ", ".join(
+            f"{k}={v:.5g}" for k, v in running.items())
+            + f", median call {med:.4f} s ({device})")
+        write_train_summary(ts.step, running, end_of_epoch=True)
+        save(epoch + 1)
+        if "validate" in splits:
+            inference(model, ts, splits["validate"], args, device,
+                      writers["validate"], ts.step, label="Validation")
+        if (epoch + 1) in (args.test_epochs or []) and "test" in splits:
+            inference(model, ts, splits["test"], args, device,
+                      writers["test"], ts.step, label="Test")
+    return {"train_state": ts, "epoch": max_epochs, "history": history,
+            "pipeline": pipeline, "resumed": resumed, "timings": timings}
+
+
+def _start_profile(device: torch.device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, workdir: str) -> None:
+    prof.stop()
+    out = os.path.join(workdir, "profile")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+
+
+def inference(model, ts, split, args, device, writer, step: int, *,
+              label: str = "Validation") -> dict:
+    """Average eval losses over a split's batches (in order) and write one
+    summary."""
+    feeder = _pipeline(split, args, device, model.batch_keys, shuffle=False,
+                       seed=0)
+    avg, running = MovingAverage(), {}
+    for batch in feeder.epoch(0):
+        running = avg.update(common.host_scalars(model.eval_losses(ts, batch)))
+    if running:
+        writer.scalars({f"losses/{k}": v for k, v in running.items()}, step)
+        term.message(f"{label}: " + ", ".join(f"{k}={v:.5g}"
+                                              for k, v in running.items()))
+    return running
 
 
 def summarize(result: dict, batch_size: int, device) -> dict:
@@ -83,8 +256,11 @@ def summarize(result: dict, batch_size: int, device) -> dict:
     when there is more than one; images/s is calls x batch / seconds, as
     ``bench.py`` defines it."""
     secs = [r["seconds"] for r in result["history"]]
-    steady = secs[1:] if len(secs) > 1 else secs
-    return {"device": str(device), "step": result["train_state"].step,
-            "calls": len(secs), "first_call_s": secs[0],
-            "median_call_s": statistics.median(steady),
-            "images_per_s": len(steady) * batch_size / sum(steady)}
+    out = {"device": str(device), "step": result["train_state"].step,
+           "epoch": result["epoch"], "calls": len(secs)}
+    if secs:
+        steady = secs[1:] if len(secs) > 1 else secs
+        out.update(first_call_s=secs[0],
+                   median_call_s=statistics.median(steady),
+                   images_per_s=len(steady) * batch_size / sum(steady))
+    return out

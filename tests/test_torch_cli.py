@@ -1,8 +1,8 @@
 """hemx_torch's CLI and package boundary.
 
 * The port never loads JAX: importing its modules in a fresh interpreter
-  leaves ``jax`` (and ``hemx``, ``flax``, ``optax``) out of sys.modules, and
-  no source file imports them.
+  leaves ``jax`` (and ``hemx``, ``flax``, ``optax``, ``msgpack``) out of
+  sys.modules, and no source file imports them.
 * ``python -m hemx_torch.cli ... --device cpu`` trains at a tiny size and
   reports ``step == epoch_size``; ``--device cuda`` without a GPU fails.
 * Every flag the port shares with hemx has hemx.config's name and default.
@@ -49,8 +49,9 @@ def test_port_does_not_load_jax():
             "import hemx_torch.cli, hemx_torch.models.gan, hemx_torch.convert\n"
             "import hemx_torch.data.synthetic, hemx_torch.train.loop\n"
             "import hemx_torch.config, hemx_torch.ops.input_kernels\n"
+            "import hemx_torch.train.checkpoint, hemx_torch.summaries.reader\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'jaxlib', 'flax', 'optax', 'hemx')]\n"
+            "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'hemx')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     r = _run(["-c", code])
@@ -58,19 +59,23 @@ def test_port_does_not_load_jax():
 
 
 def test_sources_import_no_jax_or_hemx():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|hemx)\b",
-                     re.M)
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack|hemx)\b", re.M)
     for path in (REPO / "hemx_torch").rglob("*.py"):
         assert not pat.search(path.read_text()), path
     assert not pat.search((REPO / "chip_smoke.py").read_text())
 
 
-def test_cli_trains_on_cpu():
-    r = _run(["-m", "hemx_torch.cli"] + TINY + ["--device", "cpu"])
+def test_cli_trains_on_cpu(tmp_path):
+    r = _run(["-m", "hemx_torch.cli"] + TINY + ["--device", "cpu",
+                                                 "--dir", str(tmp_path)])
     assert r.returncode == 0, r.stderr
     summary = json.loads(r.stdout.strip().splitlines()[-1])
     assert summary["step"] == 3 and summary["calls"] == 3
     assert summary["device"] == "cpu"
+    assert sorted(os.listdir(tmp_path)) == [
+        "checkpoint-0.msgpack", "checkpoint-1.msgpack", "options.config",
+        "options.json", "test", "train", "validate"]
 
 
 def test_cli_cuda_without_gpu_fails():
@@ -102,6 +107,10 @@ def test_shared_flags_match_hemx_defaults():
     want = defaults(hemx_parser())
     got = defaults(build_base_parser())
     assert set(got) - set(want) == {"device"}
+    assert {"dir", "max_to_keep", "test_epochs", "summary_freq", "examples",
+            "check_numerics", "summarize_activations", "summarize_gradients",
+            "summarize_weights", "profile", "momentum", "decay",
+            "centered"} <= set(got)
     for dest in set(got) - {"device"}:
         assert got[dest] == want[dest], dest
     for hemx_cls, port_cls in ((HD, TD), (HM, TM)):

@@ -40,15 +40,20 @@ def test_make_images_and_u8_rounding_match_hemx(n, h, w, c, seed):
 
 @pytest.mark.parametrize("u8", [False, True])
 def test_synthetic_train_split_matches_hemx(u8):
+    """Every split (train, validate, test, seeded seed, seed+1, seed+2, the
+    eval splits sized by --synthetic_eval_count) equals hemx's."""
     from hemx.data.synthetic import SyntheticDataset as H
     from hemx_torch.data.synthetic import SyntheticDataset as T
     args = make_args(synthetic_count=12, synthetic_shape=[8, 8, 3],
-                     synthetic_u8=u8)
-    want = H.get_datasets(args)["train"]
-    got = T.get_datasets(args)["train"]
-    np.testing.assert_array_equal(got.source.arrays["image"],
-                                  want.source.arrays["image"])
-    assert (got.device_transform is not None) == u8
+                     synthetic_u8=u8, synthetic_eval_count=5)
+    want_splits, got_splits = H.get_datasets(args), T.get_datasets(args)
+    assert sorted(got_splits) == ["test", "train", "validate"]
+    for name in ("train", "validate", "test"):
+        want, got = want_splits[name], got_splits[name]
+        assert got.count == want.count == (12 if name == "train" else 5)
+        np.testing.assert_array_equal(got.source.arrays["image"],
+                                      want.source.arrays["image"])
+        assert (got.device_transform is not None) == u8
 
 
 @pytest.mark.parametrize("shuffle", [True, False])

@@ -161,18 +161,52 @@ def test_critic_step_leaves_generator_untouched(setup):
 
 
 def test_train_without_noise_draws_from_state_generator(setup):
-    """No noise passed: the port draws z and alpha from ts.rng, so two
-    states seeded alike train identically and the step advances."""
+    """No noise passed: the port draws z and alpha from a generator seeded
+    by the state's key and step, so two states seeded alike train
+    identically, the step advances, and the key is kept."""
     args, _, _, _, _, _, batches = setup
     results = []
     for _ in range(2):
         model, ts = _port_state(setup)
+        np.testing.assert_array_equal(ts.rng,
+                                      np.asarray(jax.random.PRNGKey(args.seed)))
         stream = iter([{"image": _nchw(b)} for b in batches])
         ts, metrics = model.train(ts, stream)
         assert ts.step == 1
         assert all(np.isfinite(float(v)) for v in metrics.values())
+        np.testing.assert_array_equal(ts.rng,
+                                      np.asarray(jax.random.PRNGKey(args.seed)))
         results.append(float(metrics["d_loss"]))
     assert results[0] == results[1]
+
+
+def test_call_noise_is_a_function_of_key_and_step():
+    """Each call's generator is seeded from (key words, step, stream): the
+    same inputs draw the same noise, another step, key or stream other
+    noise."""
+    from hemx_torch.models import common
+    ts = common.TrainState(nets=None, opt={}, step=3,
+                           rng=common.prng_key(9))
+
+    def z(state, stream=common.TRAIN):
+        gen = common.generator(state, stream, "cpu")
+        return common.draw_noise(gen, 2, 4, alpha=False)["z"]
+    first = z(ts)
+    assert torch.equal(first, z(ts))
+    for other in (common.TrainState(None, {}, 4, ts.rng),
+                  common.TrainState(None, {}, 3, common.prng_key(10))):
+        assert not torch.equal(first, z(other))
+    assert not torch.equal(first, z(ts, common.EVAL))
+
+
+def test_critic_flags_are_anded_across_substeps():
+    from hemx_torch.models.common import and_flags
+    t, f = torch.tensor(True), torch.tensor(False)
+    flags = and_flags({}, {"d/c1/w": f, "d/c1/b": t})
+    flags = and_flags(flags, {"d/c1/w": t, "d/c1/b": t})
+    flags = and_flags(flags, {"g/fc1/w": t})
+    assert {k: bool(v) for k, v in flags.items()} == {
+        "d/c1/w": False, "d/c1/b": True, "g/fc1/w": True}
 
 
 def test_adam_apply_matches_optax(setup):
@@ -195,25 +229,27 @@ def test_adam_apply_matches_optax(setup):
     want = optax.apply_updates(p0, updates)
 
     adam_args = make_args(optimizer="adam", lr=1e-4, beta1=0.5, beta2=0.9)
-    opt = init_optimizer(adam_args, net.parameters())
+    opt = init_optimizer(adam_args, net)
     sd = convert.state_dict_from_jax(net, grads, {})
-    for name, p in net.named_parameters():
-        p.grad = sd[name].contiguous().to(p.dtype)
-    opt.step()
+    opt.step([sd[name].contiguous() for name, _ in net.named_parameters()])
     got, _ = convert.to_jax(net)
     _assert_trees_close(got, jax.device_get(want), rtol=1e-6, atol=1e-9)
-    moments = convert.adam_moments_to_jax(net, opt)
+    moments = convert.opt_state_to_jax(opt)["0"]
+    assert int(moments["count"]) == int(state[0].count) == 1
     _assert_trees_close(moments["mu"], jax.device_get(state[0].mu),
                         rtol=1e-6, atol=0)
     _assert_trees_close(moments["nu"], jax.device_get(state[0].nu),
                         rtol=1e-6, atol=0)
 
 
-def test_unported_options_raise(setup):
-    from hemx_torch.models.gan import IwganModel
-    from hemx_torch.train.optimizers import init_optimizer
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        IwganModel(make_args(model="iwgan", dtype="bfloat16"), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        init_optimizer(make_args(optimizer="rmsprop"),
-                       [torch.nn.Parameter(torch.zeros(1))])
+def test_unported_options_raise(setup, tmp_path):
+    """What the port still refuses: a split that is not kept on the device
+    needs the streaming host Pipeline (ROADMAP: the streaming Pipeline)."""
+    from hemx_torch import cli
+    argv = ["--model", "iwgan", "--dataset", "synthetic", "--synthetic_u8",
+            "--synthetic_count", "8", "--synthetic_shape", "16", "16", "3",
+            "--batch_size", "4", "--latent_size", "8", "--device", "cpu",
+            "--dir", str(tmp_path)]
+    for flags in (["--no-device_data_cache"], ["--device_cache_mb", "0"]):
+        with pytest.raises(NotImplementedError, match="streaming"):
+            cli.run(argv + flags)
