@@ -40,9 +40,25 @@ prints its last line):
    call time, images/s, checkpoint size, save and restore seconds and
    seconds per summary write.
 
+7. Card vs CPU at phase 3's size for the other BASELINE models (``gan``,
+   ``wgan`` with 2 critic steps, ``cnn``, ``vae``), sgd (lr 1e-5 for the
+   VAE, whose losses are sums): one call from the same weights, batches and
+   noise on each device; losses rtol 5e-4 / atol 1e-5, ``grad_norm``,
+   params and BN stats rtol 2e-3 / atol 2e-5; prints the tolerance each
+   run needed.
+8. Each of them at full width in bf16 (latent 200, 64x64x3; gan and wgan
+   bs512 rmsprop 2.5e-5, wgan 5 critic steps; cnn bs1024 rmsprop 1e-4; vae
+   bs512 rmsprop 1e-3) through the CLI: 1 epoch of 4 calls with
+   ``--max_to_keep 2``, then ``--epochs +1``, with phase 6's checks
+   (resume at step 4 bit-exact, step 8, checkpoints {1, 2}, finite train
+   and validate losses at the expected steps, bf16 conv outputs, the input
+   kernel's launch count for the model's batch group). Prints each model's
+   median call time and images/s.
+
 The line before the last is a JSON list of the kernels with their launch
-counts from phases 4 and 6, their phase-2 errors and times, and their
-bound; the last line is ``{"ok": true, "device": {...}}``.
+counts from phases 4, 6 and 8 (each path's counts set to 0 just before it
+and read just after), their phase-2 errors and times, and their bound; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -156,36 +172,56 @@ def _close(a, b, rtol, atol, what):
                     f"(max abs diff {np.max(np.abs(a - b)):.3g})")
 
 
-def _small_args(extra):
+def _small_args(extra, model: str = "iwgan", n_disc_train: int = 5):
     from hemx_torch.config import parse_args
-    return parse_args(["--model", "iwgan", "--dataset", "synthetic",
+    gan = model in ("gan", "wgan", "iwgan")
+    return parse_args(["--model", model, "--dataset", "synthetic",
                        "--synthetic_u8", "--synthetic_count", "64",
                        "--synthetic_shape", "32", "32", "3",
                        "--batch_size", "8", "--latent_size", "16",
-                       "--n_disc_train", "5", "--precision", "highest",
-                       "--seed", "0"] + extra)
+                       "--precision", "highest", "--seed", "0"]
+                      + (["--n_disc_train", str(n_disc_train)] if gan else [])
+                      + extra)
+
+
+def _seam_noise(torch, model, batch: int, latent: int):
+    """Noise for one train call through the model's seam, drawn on the CPU:
+    ``{"z", "alpha"}`` per IWGAN critic step, ``{"z"}`` per other GAN step,
+    one ``{"eps"}`` for the VAE; None for the CNN, which draws none."""
+    name = model.name
+    if name == "cnn":
+        return None
+    g = torch.Generator()
+    g.manual_seed(1)
+    if name == "vae":
+        return [{"eps": torch.randn((batch, latent), generator=g)}]
+    n = model.batches_per_train_call()
+    out = []
+    for i in range(n):
+        d = {"z": torch.randn((batch, latent), generator=g)}
+        if name == "iwgan" and i < n - 1:
+            d["alpha"] = torch.rand((batch, 1), generator=g)
+        out.append(d)
+    return out
 
 
 def _one_call_each(torch, dev, args, hooks: bool = False) -> dict:
-    """One IWGAN train call from the same weights, batches and noise on the
-    CPU and on ``dev``: {device: (metrics, (params, mstate), batches,
-    layer output dtypes)}."""
+    """One train call of ``args.model`` from the same weights, batches and
+    noise on the CPU and on ``dev``: {device: (metrics, (params, mstate),
+    batches, layer output dtypes)}."""
     from hemx_torch import convert
     from hemx_torch.data.pipeline import DeviceDataPipeline
     from hemx_torch.data.synthetic import SyntheticDataset
-    from hemx_torch.models.gan import IwganModel
+    from hemx_torch.models.plugin import get_model
     from hemx_torch.ops.layers import set_precision
 
     set_precision(args.precision)
     split = SyntheticDataset.get_datasets(args)["train"]
-    g = torch.Generator()
-    g.manual_seed(1)
-    noise = [{"z": torch.randn((8, 16), generator=g),
-              "alpha": torch.rand((8, 1), generator=g)} for _ in range(5)]
-    noise.append({"z": torch.randn((8, 16), generator=g)})
+    cls = get_model(args.model)
+    noise = _seam_noise(torch, cls(args, "cpu"), 8, 16)
     out = {}
     for d in ("cpu", dev):
-        model = IwganModel(args, d)
+        model = cls(args, d)
         ts = model.init_state((3, 32, 32), args.seed)
         dtypes, handles = {}, []
 
@@ -198,10 +234,12 @@ def _one_call_each(torch, dev, args, hooks: bool = False) -> dict:
                 for name, layer in ts.nets[net].named_children():
                     handles.append(layer.register_forward_hook(
                         record(f"{net}/{name}")))
+        n = model.batches_per_train_call()
         pipe = DeviceDataPipeline(split, 8, device=d, keys=("image",),
-                                  seed=0, group=model.batches_per_train_call())
-        batches = list(pipe.epoch(0))[:6]
-        ts, metrics = model.train(ts, iter(batches), noise=noise)
+                                  seed=0, group=n)
+        batches = list(pipe.epoch(0))[:n]
+        kw = {} if noise is None else {"noise": noise}
+        ts, metrics = model.train(ts, iter(batches), **kw)
         for h in handles:
             h.remove()
         out[str(d)] = ({k: float(v) for k, v in metrics.items()},
@@ -301,23 +339,28 @@ def expected_launches(per_epoch: int, group: int, consumed: int) -> int:
     return launches
 
 
+# the headline IWGAN's flags beside the model's own (BASELINE widths)
+IWGAN_FLAGS = ["--n_disc_train", "5", "--optimizer", "adam", "--lr", "1e-4",
+               "--beta1", "0.5", "--beta2", "0.9"]
+
+
 def full_width_argv(dev, workdir: str, *, count: int, eval_count: int,
-                    image: int, batch: int, latent: int) -> list:
-    return ["--model", "iwgan", "--dataset", "synthetic", "--synthetic_u8",
+                    image: int, batch: int, latent: int,
+                    model: str = "iwgan", flags=IWGAN_FLAGS) -> list:
+    return ["--model", model, "--dataset", "synthetic", "--synthetic_u8",
             "--synthetic_count", str(count),
             "--synthetic_eval_count", str(eval_count),
             "--synthetic_shape", str(image), str(image), "3",
             "--batch_size", str(batch), "--latent_size", str(latent),
-            "--n_disc_train", "5", "--optimizer", "adam", "--lr", "1e-4",
-            "--beta1", "0.5", "--beta2", "0.9", "--device", str(dev),
-            "--dir", workdir, "--seed", "0"]
+            *flags, "--device", str(dev), "--dir", workdir, "--seed", "0"]
 
 
-def run_launches(count: int, eval_count: int, batch: int, calls: int) -> int:
+def run_launches(count: int, eval_count: int, batch: int, calls: int,
+                 group: int = 6) -> int:
     """Input-kernel launches of one ``cli.run`` of one epoch of ``calls``
-    calls: the train stream, the summary batch, and one per validation
-    batch."""
-    return (expected_launches(count // batch, 6, calls * 6) + 1
+    calls of ``group`` batches: the train stream, the summary batch, and one
+    per validation batch."""
+    return (expected_launches(count // batch, group, calls * group) + 1
             + eval_count // batch)
 
 
@@ -389,25 +432,35 @@ def _trees_equal(a: dict, b: dict) -> bool:
         and np.array_equal(fa[k], fb[k]) for k in fa)
 
 
-def phase_bf16_run(torch, dev, card: str, workdir: str, *, count: int = 4096,
-                   eval_count: int = 1024, image: int = 64, batch: int = 512,
-                   latent: int = 200, calls: int = 6) -> int:
+def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
+                   group: int, count: int, eval_count: int,
+                   batch: int) -> dict:
+    """``cli.run(argv)`` for one epoch of ``calls`` calls with
+    ``--max_to_keep 2``, then ``--epochs +1`` on the same ``--dir``, with
+    the input kernel's counts set to 0 just before and read just after.
+    Checks checkpoints 0 and 1 after the first run; the second resumes at
+    step ``calls`` from checkpoint 1 (restore bit-exact) and ends at step
+    ``2 * calls`` with checkpoints {1, 2}; every loss finite in the history
+    and in the train and validate events at the expected steps; every conv
+    product (a conv's output, or the input of its BN) on the card in bf16;
+    the launch count. Returns
+    both runs' results and the launches."""
     from hemx_torch import cli, convert
-    from hemx_torch.models.gan import IwganModel
+    from hemx_torch.models.plugin import get_model
     from hemx_torch.ops import input_kernels as K
     from hemx_torch.ops.layers import BatchNorm, Conv2d
-    from hemx_torch.summaries.crc32c import masked_crc32c
     from hemx_torch.summaries.reader import get_all_events, get_tag_values
     from hemx_torch.train.checkpoint import CheckpointManager
 
-    argv = full_width_argv(dev, workdir, count=count, eval_count=eval_count,
-                           image=image, batch=batch, latent=latent)
-    argv += ["--dtype", "bfloat16", "--epoch_size", str(calls),
-             "--max_to_keep", "2"]
+    argv = argv + ["--dtype", "bfloat16", "--epoch_size", str(calls),
+                   "--max_to_keep", "2"]
     seen = {"conv2d output": set(), "batch_norm input": set()}
 
     def post(m, inp, out):
-        if isinstance(m, Conv2d) and out[0].device.type == dev.type:
+        # a conv with BN outputs f32 by hemx's policy (BN's f32 beta); its
+        # bf16 product is the BN input the pre-hook sees
+        if (isinstance(m, Conv2d) and not hasattr(m, "norm0")
+                and out[0].device.type == dev.type):
             seen["conv2d output"].add(out[0].dtype)
 
     def pre(m, inp):
@@ -430,61 +483,156 @@ def phase_bf16_run(torch, dev, card: str, workdir: str, *, count: int = 4096,
         for h in hooks:
             h.remove()
     launches = K.LAUNCHES["gather_u8_normalize"]
+    args = res2["args"]
     ts = res2["train_state"]
     r = res2["resumed"]
     check(r is not None and r["epoch"] == 1 and r["step"] == calls
           and r["path"].endswith("checkpoint-1.msgpack"),
-          f"second run resumed from {r}")
-    fresh = IwganModel(res2["args"], dev).init_state((3, image, image), 0)
+          f"{args.model}: second run resumed from {r}")
+    image = args.synthetic_shape[0]
+    fresh = get_model(args.model)(args, dev).init_state((3, image, image), 0)
     check(convert.load_checkpoint(fresh, ckpt1) == 1
           and _trees_equal(convert.to_checkpoint(fresh, 1), ckpt1),
-          "restoring checkpoint-1 is not bit-exact (weights, BN stats, Adam "
-          "moments, step, key)")
+          f"{args.model}: restoring checkpoint-1 is not bit-exact (weights, "
+          f"BN stats, optimizer moments, step, key)")
     check(ts.step == 2 * calls and res2["epoch"] == 2,
-          f"second run ended at step {ts.step}, epoch {res2['epoch']}")
+          f"{args.model}: second run ended at step {ts.step}, epoch "
+          f"{res2['epoch']}")
     ckpts = [e for e, _ in manager.checkpoints()]
-    check(ckpts == [1, 2], f"after gc: checkpoints {ckpts}")
+    check(ckpts == [1, 2], f"{args.model}: after gc: checkpoints {ckpts}")
     hist = res1["history"] + res2["history"]
+    losses = sorted(k for k in hist[0] if k != "seconds")
     check(len(hist) == 2 * calls and all(
-        math.isfinite(h[k]) for h in hist for k in ("g_loss", "d_loss")),
-        f"calls {len(hist)}, non-finite loss in {hist}")
-    want = {"train": expected_summary_steps(calls, 0, 2, 0),
-            "validate": {calls, 2 * calls}}
-    for phase, steps in want.items():
+        math.isfinite(h[k]) for h in hist for k in losses),
+        f"{args.model}: calls {len(hist)}, non-finite loss in {hist}")
+    want = {"train": (expected_summary_steps(calls, 0, 2, 0), losses),
+            "validate": ({calls, 2 * calls},
+                         [k for k in losses if k != "grad_norm"])}
+    for phase, (steps, tags) in want.items():
         events = get_all_events(os.path.join(workdir, phase))
-        for tag in ("losses/g_loss", "losses/d_loss"):
-            got = get_tag_values("", tag, events)
+        for tag in tags:
+            got = get_tag_values("", f"losses/{tag}", events)
             check({s for s, _ in got} == steps,
-                  f"{phase} {tag} at steps {[s for s, _ in got]}, expected "
-                  f"{sorted(steps)}")
+                  f"{args.model} {phase} losses/{tag} at steps "
+                  f"{[s for s, _ in got]}, expected {sorted(steps)}")
             check(all(math.isfinite(v) for _, v in got),
-                  f"{phase} {tag} not finite: {got}")
+                  f"{args.model} {phase} losses/{tag} not finite: {got}")
+    has_bn = any(isinstance(m, BatchNorm) for m in ts.nets.modules())
     check(seen == {"conv2d output": {torch.bfloat16},
-                   "batch_norm input": {torch.bfloat16}},
-          f"compute dtypes on the card: {seen}")
-    want_launches = 2 * run_launches(count, eval_count, batch, calls)
-    check(launches == want_launches, f"input kernel launched {launches} "
-                                     f"times, expected {want_launches}")
-    t = res1["timings"]
-    t2 = res2["timings"]
+                   "batch_norm input": {torch.bfloat16} if has_bn else set()},
+          f"{args.model}: compute dtypes on the card: {seen}")
+    want_launches = 2 * run_launches(count, eval_count, batch, calls, group)
+    check(launches == want_launches,
+          f"{args.model}: input kernel launched {launches} times, expected "
+          f"{want_launches}")
+    secs = [h["seconds"] for h in hist]
+    steady = secs[1:calls] + secs[calls + 1:]
+    return {"res1": res1, "res2": res2, "launches": launches, "secs": secs,
+            "median_s": statistics.median(steady), "steady": len(steady),
+            "losses": losses}
+
+
+def phase_bf16_run(torch, dev, card: str, workdir: str, *, count: int = 4096,
+                   eval_count: int = 1024, image: int = 64, batch: int = 512,
+                   latent: int = 200, calls: int = 6) -> int:
+    from hemx_torch.summaries.crc32c import masked_crc32c
+
+    argv = full_width_argv(dev, workdir, count=count, eval_count=eval_count,
+                           image=image, batch=batch, latent=latent)
+    out = run_and_resume(torch, dev, workdir, argv, calls, 6, count,
+                         eval_count, batch)
+    t, t2 = out["res1"]["timings"], out["res2"]["timings"]
     crc_data = bytes(range(256)) * 4096  # 1 MiB
     t0 = time.perf_counter()
     masked_crc32c(crc_data)
     crc_s = time.perf_counter() - t0
-    secs = [h["seconds"] for h in hist]
-    steady = secs[1:calls] + secs[calls + 1:]
-    med = statistics.median(steady)
+    secs, med = out["secs"], out["median_s"]
     print(f"IWGAN bf16 bs{batch} {image}x{image}x3 latent {latent}, 5+1, Adam, "
           f"2 runs of {calls} calls on {card}: first calls "
           f"{secs[0]:.4f} / {secs[calls]:.4f} s, median call {med:.4f} s "
-          f"({len(steady)} steady calls), {batch / med:.1f} images/s; "
-          f"resumed at step {r['step']}, ended at step {ts.step}", flush=True)
+          f"({out['steady']} steady calls), {batch / med:.1f} images/s; "
+          f"resumed at step {out['res2']['resumed']['step']}, ended at step "
+          f"{out['res2']['train_state'].step}", flush=True)
     print(f"checkpoint {t['checkpoint_bytes'][-1]} bytes; save s "
           f"{[round(x, 4) for x in t['save_s'] + t2['save_s']]}; restore s "
           f"{[round(x, 4) for x in t2['restore_s']]}; summary write s median "
           f"{statistics.median(t['summary_s'] + t2['summary_s']):.4f} "
           f"(n={len(t['summary_s'] + t2['summary_s'])}); pure-Python "
           f"crc32c {crc_s:.4f} s per MiB", flush=True)
+    return out["launches"]
+
+
+# (model, batch, train-call group, flags): BASELINE's widths and optimizers
+ZOO = [("gan", 512, 1, ["--optimizer", "rmsprop", "--lr", "2.5e-5"]),
+       ("wgan", 512, 6, ["--n_disc_train", "5", "--optimizer", "rmsprop",
+                         "--lr", "2.5e-5"]),
+       ("cnn", 1024, 1, ["--optimizer", "rmsprop", "--lr", "1e-4"]),
+       ("vae", 512, 1, ["--optimizer", "rmsprop", "--lr", "1e-3"])]
+
+
+def phase_zoo_card_vs_cpu(torch, dev) -> None:
+    """Phase 3's check for the other BASELINE models: one call on the card
+    and on the CPU (32 px, latent 16, batch 8, highest, sgd, 2 critic steps
+    for the WGAN); losses rtol 5e-4 / atol 1e-5, ``grad_norm``, params
+    and BN stats rtol 2e-3 / atol 2e-5. The VAE's losses are sums over B*H*W*C (24,576
+    values here), not means, and its gradients are that much larger; a
+    parameter's card-vs-CPU difference after sgd is lr times its
+    gradient's, so the VAE steps at lr 1e-5 (at 1e-4 the encoder's first
+    kernel differed by 3.44e-5, over the atol)."""
+    for name in ("gan", "wgan", "cnn", "vae"):
+        lr = "1e-5" if name == "vae" else "1e-3"
+        args = _small_args(["--optimizer", "sgd", "--lr", lr], model=name,
+                           n_disc_train=2)
+        out = _one_call_each(torch, dev, args)
+        (m_gpu, _, b_gpu, _), (m_cpu, _, b_cpu, _) = out[str(dev)], out["cpu"]
+        for a, b in zip(b_gpu, b_cpu):
+            check(torch.equal(a, b), f"{name}: cuda and cpu batches differ")
+        check(set(m_gpu) == set(m_cpu), f"{name}: metrics {m_gpu} vs {m_cpu}")
+        need = {}
+        for k in m_cpu:
+            # grad_norm is a statistic of the gradient, which the
+            # parameters' tolerance holds (the sgd step is lr * grad)
+            rtol, atol = (2e-3, 2e-5) if k == "grad_norm" else (5e-4, 1e-5)
+            _close(m_gpu[k], m_cpu[k], rtol, atol, f"{name} {k}")
+            need[k] = abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+        worst_abs, worst_excess = _compare_trees(out, dev, 2e-3, 2e-5)
+        print(f"card vs cpu, {name} (32px, latent 16, batch 8, highest, sgd "
+              f"{lr}): metrics cuda {m_gpu} cpu {m_cpu}, relative "
+              f"difference (the rtol each needed) "
+              + ", ".join(f"{k} {v:.3g}" for k, v in need.items())
+              + f"; params and BN stats max |cuda-cpu| {worst_abs:.3g}, "
+              f"atol needed at rtol 2e-3 {max(worst_excess, 0.0):.3g}",
+              flush=True)
+
+
+def phase_zoo_bf16_runs(torch, dev, card: str, workdir: str, *,
+                        count: int = 4096, eval_count: int = 1024,
+                        image: int = 64, latent: int = 200,
+                        calls: int = 4) -> dict:
+    """Each other BASELINE model at full width in bf16 through the CLI, one
+    epoch of ``calls`` calls and then ``--epochs +1``
+    (:func:`run_and_resume`). Returns {model: input-kernel launches}."""
+    launches = {}
+    for name, batch, group, flags in ZOO:
+        d = os.path.join(workdir, name)
+        argv = full_width_argv(dev, d, count=count, eval_count=eval_count,
+                               image=image, batch=batch, latent=latent,
+                               model=name, flags=flags)
+        out = run_and_resume(torch, dev, d, argv, calls, group, count,
+                             eval_count, batch)
+        launches[name] = out["launches"]
+        med = out["median_s"]
+        last = out["res2"]["history"][-1]
+        print(f"{name} bf16 bs{batch} {image}x{image}x3 latent {latent}, "
+              f"{' '.join(flags)}, 2 runs of {calls} calls on {card}: first "
+              f"calls {out['secs'][0]:.4f} / {out['secs'][calls]:.4f} s, "
+              f"median call {med:.4f} s ({out['steady']} steady calls), "
+              f"{batch / med:.1f} images/s (calls x {batch} / seconds, as "
+              f"bench.py counts); resumed at step {out['res2']['resumed']['step']}, "
+              f"ended at step {out['res2']['train_state'].step}; "
+              f"checkpoints {{1, 2}}; {out['launches']} input-kernel "
+              f"launches; last call " + ", ".join(
+                  f"{k} {last[k]:.6g}" for k in out["losses"]), flush=True)
     return launches
 
 
@@ -518,13 +666,21 @@ def main() -> int:
               flush=True)
         launches_bf16 = phase_bf16_run(torch, dev, card,
                                        os.path.join(workdir, "bf16"))
+        print("== phase 7: card vs cpu, gan/wgan/cnn/vae, small size",
+              flush=True)
+        phase_zoo_card_vs_cpu(torch, dev)
+        print("== phase 8: gan/wgan/cnn/vae at full width in bf16, with "
+              "resume", flush=True)
+        launches_zoo = phase_zoo_bf16_runs(torch, dev, card,
+                                           os.path.join(workdir, "zoo"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"kernels": [{
         "name": "gather_u8_normalize", "route": "triton",
         "source": "hemx_torch/ops/input_kernels.py",
         "replaces": "hemx/ops/pallas_kernels.py:75",
-        "launches": launches, "launches_bf16_run": launches_bf16, **kern}]}),
+        "launches": launches, "launches_bf16_run": launches_bf16,
+        "launches_by_model_bf16_run": launches_zoo, **kern}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

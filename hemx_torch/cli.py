@@ -4,6 +4,9 @@
         --dtype bfloat16 --dir workspace/iwgan
     python -m hemx_torch.cli ... --dir workspace/iwgan --epochs +1   # resume
 
+``--model`` is one of ``cnn`` (the default, as in ``train.py``), ``vae``,
+``gan``, ``wgan`` and ``iwgan``.
+
 Flags are ``hemx``'s (see ``hemx_torch.config``) plus ``--device``
 (default ``cuda``); the workspace (checkpoints, events, options) has
 ``train.py``'s layout and formats. The last line of standard output is a

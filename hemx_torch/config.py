@@ -1,4 +1,4 @@
-"""Command-line flags of the IWGAN slice (counterpart of ``hemx.config``).
+"""Command-line flags of the port (counterpart of ``hemx.config``).
 
 Every flag the port reads has ``hemx.config``'s name and default (pinned by
 ``tests/test_torch_cli.py``); ``--device`` is new. Parsing is ``hemx``'s

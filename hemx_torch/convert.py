@@ -17,7 +17,8 @@ hemx's pytrees and so in its checkpoints.
 
 The whole train state crosses as hemx's checkpoint tree (the flax state
 dict of ``{"train_state": {params, mstate, opt, step, rng}, "epoch"}``):
-``opt`` holds each optimizer's optax state under optax's names
+``opt`` is the optax state of the model's one optimizer (CNN, VAE), or a
+dict of them (the GANs' ``{"g", "d"}``), under optax's names
 (``hemx_torch.train.optimizers``), ``step`` is a 0-d int32 array, ``rng``
 the uint32[2] key, ``epoch`` an int64 (0-d array or numpy scalar).
 Loading checks that the tree
@@ -143,11 +144,20 @@ def opt_state_to_jax(opt: Optimizer, leaf: Callable = _numpy):
     return walk(opt.state)
 
 
+def _opt_tree(opt, fn: Callable):
+    """``fn`` over a train state's optimizers: one optimizer over the whole
+    model (hemx's CNN and VAE keep its optax state as ``opt`` itself), or a
+    dict of them (the GANs' ``{"g", "d"}``)."""
+    if isinstance(opt, Optimizer):
+        return fn(opt)
+    return {k: fn(o) for k, o in opt.items()}
+
+
 def train_state_to_jax(ts, leaf: Callable = _numpy) -> dict:
     """The train state as hemx's ``{params, mstate, opt, step, rng}``."""
     params, mstate = _trees(ts.nets, leaf)
     return {"params": params, "mstate": mstate,
-            "opt": {k: opt_state_to_jax(o, leaf) for k, o in ts.opt.items()},
+            "opt": _opt_tree(ts.opt, lambda o: opt_state_to_jax(o, leaf)),
             "step": np.asarray(ts.step, np.int32),
             "rng": np.asarray(ts.rng, np.uint32)}
 
@@ -206,8 +216,11 @@ def load_checkpoint(ts, tree: dict) -> int:
     check_same_structure(template, tree)
     state = tree["train_state"]
     load_from_jax(ts.nets, state["params"], state["mstate"])
-    for k, opt in ts.opt.items():
-        _load_opt_state(opt, state["opt"][k])
+    if isinstance(ts.opt, Optimizer):
+        _load_opt_state(ts.opt, state["opt"])
+    else:
+        for k, opt in ts.opt.items():
+            _load_opt_state(opt, state["opt"][k])
     ts.step = int(state["step"])
     ts.rng = np.array(state["rng"], dtype=np.uint32)
     return int(tree["epoch"])

@@ -3,7 +3,7 @@
 A numpy copy of ``hemx``'s ``_make_images`` and of its uint8 rounding,
 pinned equal to the original by ``tests/test_torch_data.py``. The train,
 validate and test splits are seeded ``seed``, ``seed + 1`` and ``seed + 2``
-as in ``hemx``; only the ``image`` key is built (the IWGAN slice reads
+as in ``hemx``; only the ``image`` key is built (the ported models read
 nothing else).
 """
 

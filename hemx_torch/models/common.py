@@ -35,8 +35,8 @@ TRAIN, EVAL, SAMPLE, REPORT = range(4)
 
 @dataclasses.dataclass
 class TrainState:
-    nets: nn.ModuleDict
-    opt: dict
+    nets: nn.Module
+    opt: object  # one Optimizer over ``nets``, or {name: Optimizer}
     step: int
     rng: np.ndarray  # uint32[2], jax.random.PRNGKey's layout
 
@@ -46,7 +46,7 @@ def prng_key(seed: int) -> np.ndarray:
     return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
 
 
-def new_train_state(nets: nn.ModuleDict, opt: dict, seed: int) -> TrainState:
+def new_train_state(nets: nn.Module, opt, seed: int) -> TrainState:
     return TrainState(nets=nets, opt=opt, step=0, rng=prng_key(seed))
 
 
@@ -61,21 +61,29 @@ def generator(ts: TrainState, stream: int, device) -> torch.Generator:
 
 
 def draw_noise(gen: torch.Generator, batch: int, latent: int, *,
-               alpha: bool) -> dict:
-    """One substep's noise: ``z`` (B, latent) standard normal, plus the GP's
-    ``alpha`` (B, 1) uniform for a critic substep
-    (``hemx/models/gan.py:229-231,254,289-291``)."""
+               alpha: bool = False, key: str = "z") -> dict:
+    """One substep's noise: ``key`` (B, latent) standard normal (GAN ``z``,
+    VAE ``eps``), plus the GP's ``alpha`` (B, 1) uniform for an IWGAN
+    critic substep (``hemx/models/gan.py:229-231,254,289-291``)."""
     dev = gen.device
-    out = {"z": torch.randn((batch, latent), generator=gen, device=dev)}
+    out = {key: torch.randn((batch, latent), generator=gen, device=dev)}
     if alpha:
         out["alpha"] = torch.rand((batch, 1), generator=gen, device=dev)
     return out
 
 
+def _path(prefix: str, name: str) -> str:
+    """hemx's tree path of parameter ``name`` under ``prefix`` ('' for a
+    model whose parameter tree is the network's own)."""
+    path = name.replace(".", "/")
+    return f"{prefix}/{path}" if prefix else path
+
+
 def grad_finite_report(prefix: str, net: nn.Module, grads) -> dict:
     """Per-parameter finite-ness flags (0-d bool tensors on the device),
-    named by hemx's tree path, e.g. ``d/c1/w`` (``--check_numerics``)."""
-    return {f"{prefix}/{n.replace('.', '/')}": torch.isfinite(g).all()
+    named by hemx's tree path, e.g. ``d/c1/w``, or ``encoder/c1/w`` with no
+    prefix (``--check_numerics``)."""
+    return {_path(prefix, n): torch.isfinite(g).all()
             for (n, _), g in zip(net.named_parameters(), grads)}
 
 
@@ -138,8 +146,9 @@ def write_stat_summaries(writer, step: int, stats: dict, prefix: str) -> None:
 
 
 def grads_by_path(prefix: str, net: nn.Module, grads) -> dict:
-    """``{prefix/layer/leaf: gradient in hemx layout}``."""
-    return {f"{prefix}/{n.replace('.', '/')}": jax_view(net, n, g)
+    """``{prefix/layer/leaf: gradient in hemx layout}`` (no prefix: the
+    path within ``net``)."""
+    return {_path(prefix, n): jax_view(net, n, g)
             for (n, _), g in zip(net.named_parameters(), grads)}
 
 

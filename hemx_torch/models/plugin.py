@@ -10,8 +10,9 @@ A model is constructed as ``Model(args, device)``, then:
   ``--summarize_activations`` / ``--summarize_gradients``
   ``capture_activations`` / ``grad_report`` (stats per tensor).
 
-Only ``iwgan`` is ported; the registry is an explicit table rather than
-``hemx``'s package scan.
+Ported: the BASELINE models ``cnn``, ``vae``, ``gan``, ``wgan`` and
+``iwgan``, each under hemx's name with hemx's ``arguments()``. The
+registry is an explicit table rather than ``hemx``'s package scan.
 """
 
 from __future__ import annotations
@@ -19,8 +20,18 @@ from __future__ import annotations
 import importlib
 from typing import Optional
 
+import torch
+
 # name -> "module:Class", imported on lookup
-_REGISTRY = {"iwgan": "hemx_torch.models.gan:IwganModel"}
+_REGISTRY = {"cnn": "hemx_torch.models.cnn:CnnModel",
+             "vae": "hemx_torch.models.vae:VaeModel",
+             "gan": "hemx_torch.models.gan:GanModel",
+             "wgan": "hemx_torch.models.gan:WganModel",
+             "iwgan": "hemx_torch.models.gan:IwganModel"}
+
+
+# --dtype -> the compute dtype of every conv, deconv and dense
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 class ModelPlugin:
@@ -35,7 +46,19 @@ class ModelPlugin:
 
     def __init__(self, args, device):
         self.args = args
-        self.device = device
+        self.device = torch.device(device)
+        self.compute_dtype = COMPUTE_DTYPES[getattr(args, "dtype", "float32")]
+
+    def _build(self, image_shape, generator: torch.Generator):
+        raise NotImplementedError
+
+    def build_nets(self, image_shape, seed: int):
+        """Fresh networks for images of shape (C, H, W), their weights
+        drawn on the CPU from ``seed`` (so every device starts from the
+        same weights), moved to the model's device."""
+        gen = torch.Generator()
+        gen.manual_seed(seed)
+        return self._build(tuple(image_shape), gen).to(self.device)
 
     def init_state(self, image_shape, seed: int):
         raise NotImplementedError

@@ -1,4 +1,4 @@
-"""Layers of the IWGAN path (counterpart of ``hemx.ops.layers``).
+"""Layers of the BASELINE models (counterpart of ``hemx.ops.layers``).
 
 Tensors are NCHW logically and ``torch.channels_last`` in memory, so cuDNN
 runs its NHWC kernels. Parameter names follow the ``hemx`` pytree (``w``,
@@ -243,7 +243,9 @@ class Sequential(nn.Module):
     """Named layers applied in order; collects every child's BN stats under
     the child's name (``hemx.core.sequential``). With a ``capture`` dict,
     each child's output is also stored there under the child's name (the
-    ``Ctx(capture=True)`` intermediates of ``hemx.core``)."""
+    ``Ctx(capture=True)`` intermediates of ``hemx.core``); a nested
+    Sequential's children land under ``<child>/<name>``, before the child's
+    own output."""
 
     def __init__(self, layers: dict):
         super().__init__()
@@ -253,7 +255,12 @@ class Sequential(nn.Module):
     def forward(self, x, capture: Optional[dict] = None):
         stats = {}
         for name, layer in self.named_children():
-            x, s = layer(x)
+            if capture is not None and isinstance(layer, Sequential):
+                inner = {}
+                x, s = layer(x, inner)
+                capture.update({f"{name}/{k}": v for k, v in inner.items()})
+            else:
+                x, s = layer(x)
             stats.update({f"{name}.{k}": v for k, v in s.items()})
             if capture is not None:
                 capture[name] = x

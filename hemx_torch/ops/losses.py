@@ -1,11 +1,59 @@
-"""WGAN losses and the IWGAN gradient penalty (counterpart of
-``hemx.ops.losses``)."""
+"""Losses of the BASELINE models and the IWGAN gradient penalty
+(counterpart of ``hemx.ops.losses``).
+
+The log guards keep the reference's order: ``1 - p`` first, then ``+ eps``
+(``eps + (1 - p)``), so a sigmoid output of exactly 0 or 1 gives a finite
+loss. hemx pins ``1 - p`` behind ``lax.optimization_barrier`` because XLA
+would fold ``eps + (1 - p)`` into ``(eps + 1) - p``; eager PyTorch evaluates
+in the written order and needs no barrier. Do not ``torch.compile`` these
+functions: a compiler may reassociate the sum the same way.
+"""
 
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+
+
+def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean absolute error (reference: models/cnn.py:75-79)."""
+    return torch.mean(torch.abs(x - y))
+
+
+def l2_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.mean((x - y) ** 2)
+
+
+def bernoulli_recon_loss(x: torch.Tensor, x_hat: torch.Tensor,
+                         eps: float = 1e-8) -> torch.Tensor:
+    """Sum-reduced Bernoulli reconstruction loss (reference:
+    models/vae.py:75-79); the second guard is ``eps + (1 - x_hat)``."""
+    ll = x * torch.log(eps + x_hat) + (1.0 - x) * torch.log(eps + (1.0 - x_hat))
+    return -torch.sum(ll)
+
+
+def kl_gaussian_loss(z_mean: torch.Tensor, z_stddev: torch.Tensor,
+                     eps: float = 1e-8) -> torch.Tensor:
+    """Sum-reduced KL(q || N(0, 1)) in the reference's stddev-head
+    parameterization (reference: models/vae.py:81-83)."""
+    term = (torch.square(z_mean) + torch.square(z_stddev)
+            - torch.log(eps + torch.square(z_stddev)) - 1.0)
+    return 0.5 * torch.sum(term)
+
+
+def gan_g_loss(d_fake: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Non-saturating generator loss -E[log D(G(z))] over sigmoid outputs
+    (reference: models/gan.py:195)."""
+    return torch.mean(-torch.log(d_fake + eps))
+
+
+def gan_d_loss(d_real: torch.Tensor, d_fake: torch.Tensor,
+               eps: float = 1e-8) -> torch.Tensor:
+    """Discriminator log loss (reference: models/gan.py:196); the fake
+    term is ``log((1 - d_fake) + eps)``."""
+    return torch.mean(-torch.log(d_real + eps)
+                      - torch.log((1.0 - d_fake) + eps))
 
 
 def wgan_g_loss(d_fake: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time goes in one hemx_torch IWGAN train call on a GPU.
+"""Where the time goes in one hemx_torch train call on a GPU.
 
     python3 scripts/profile_torch_iwgan.py [--calls 3] [--out PATH] [hemx flags]
 
-Defaults to the headline configuration (latent 200, 64x64x3, batch 512,
-5 critic + 1 generator step, Adam, synthetic uint8 data). After two warm-up
+Defaults to the headline IWGAN configuration (latent 200, 64x64x3, batch
+512, 5 critic + 1 generator step, Adam, synthetic uint8 data); hemx flags
+given after it override it, ``--model`` included (``--model cnn
+--batch_size 1024 --optimizer rmsprop --lr 1e-4`` profiles the CNN
+autoencoder's call). After two warm-up
 calls it records ``--calls`` train calls under ``torch.profiler`` and
 reports the device time by kernel, the device-busy share of the profiled
 window (union of kernel intervals over the host-clock window), and an
@@ -49,7 +52,7 @@ def main() -> int:
     from hemx_torch.config import parse_args
     from hemx_torch.data.pipeline import DeviceDataPipeline
     from hemx_torch.data.synthetic import SyntheticDataset
-    from hemx_torch.models.gan import IwganModel
+    from hemx_torch.models.plugin import get_model
     from hemx_torch.ops.layers import set_precision
     from hemx_torch.train.loop import _continuous_stream
 
@@ -63,7 +66,7 @@ def main() -> int:
         return 1
     dev = torch.device(args.device)
     set_precision(args.precision)
-    model = IwganModel(args, dev)
+    model = get_model(args.model)(args, dev)
     split = SyntheticDataset.get_datasets(args)["train"]
     h, w, c = split.source.arrays["image"].shape[1:]
     ts = model.init_state((c, h, w), args.seed)
@@ -103,7 +106,8 @@ def main() -> int:
 
     card = torch.cuda.get_device_name(dev)
     record = {
-        "card": card, "calls_profiled": mine.calls,
+        "card": card, "model": args.model, "batch_size": args.batch_size,
+        "dtype": args.dtype, "calls_profiled": mine.calls,
         "window_ms_per_call": window_us / 1e3 / mine.calls,
         "device_busy_share": _busy_share(kernels, window_us),
         "kernel_ms_per_call": total / 1e3 / mine.calls,
@@ -111,7 +115,8 @@ def main() -> int:
         "top_kernels_ms_per_call": [(n, t / 1e3 / mine.calls) for n, t in top],
         "cudnn_benchmark_ab_s_per_call": {str(k): v for k, v in ab.items()},
     }
-    print(f"card: {card}; profiled {mine.calls} calls: "
+    print(f"card: {card}; {args.model} bs{args.batch_size} {args.dtype}; "
+          f"profiled {mine.calls} calls: "
           f"{record['window_ms_per_call']:.1f} ms/call wall, "
           f"{record['kernel_ms_per_call']:.1f} ms/call kernel time, device "
           f"busy {100 * record['device_busy_share']:.1f} %, "

@@ -4,8 +4,10 @@
   leaves ``jax`` (and ``hemx``, ``flax``, ``optax``, ``msgpack``) out of
   sys.modules, and no source file imports them.
 * ``python -m hemx_torch.cli ... --device cpu`` trains at a tiny size and
-  reports ``step == epoch_size``; ``--device cuda`` without a GPU fails.
-* Every flag the port shares with hemx has hemx.config's name and default.
+  reports ``step == epoch_size``; without ``--model`` it trains the CNN;
+  ``--device cuda`` without a GPU fails; a model not ported yet exits 2.
+* Every flag the port shares with hemx has hemx.config's name and default,
+  and every ported model hemx's name and ``arguments()``.
 """
 
 import json
@@ -47,6 +49,7 @@ def _run(args, timeout=120):
 def test_port_does_not_load_jax():
     code = ("import sys\n"
             "import hemx_torch.cli, hemx_torch.models.gan, hemx_torch.convert\n"
+            "import hemx_torch.models.cnn, hemx_torch.models.vae\n"
             "import hemx_torch.data.synthetic, hemx_torch.train.loop\n"
             "import hemx_torch.config, hemx_torch.ops.input_kernels\n"
             "import hemx_torch.train.checkpoint, hemx_torch.summaries.reader\n"
@@ -86,19 +89,35 @@ def test_cli_cuda_without_gpu_fails():
     assert "no CUDA device" in r.stderr
 
 
-def test_cli_unknown_model_exits_2():
+def test_cli_unknown_model_exits_2(capsys):
+    """A model hemx has and the port has not yet is refused, naming the
+    ported ones."""
     from hemx_torch import cli
-    assert cli.main(["--model", "cnn", "--dataset", "synthetic",
+    assert cli.main(["--model", "pix2pix", "--dataset", "synthetic",
                      "--device", "cpu"]) == 2
+    assert "['cnn', 'gan', 'iwgan', 'vae', 'wgan']" in capsys.readouterr().err
+
+
+def test_cli_default_model_is_cnn(tmp_path):
+    """No ``--model``: the CNN autoencoder trains, as ``train.py`` does."""
+    r = _run(["-m", "hemx_torch.cli", "--dataset", "synthetic",
+              "--synthetic_u8", "--synthetic_count", "8",
+              "--synthetic_shape", "16", "16", "3", "--batch_size", "4",
+              "--latent_size", "8", "--epochs", "1", "--seed", "1",
+              "--device", "cpu", "--dir", str(tmp_path)])
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1])["step"] == 2
+    with open(tmp_path / "options.json") as f:
+        assert json.load(f)["model"] == "cnn"
 
 
 def test_shared_flags_match_hemx_defaults():
     from hemx.config import build_base_parser as hemx_parser
     from hemx.data.synthetic import SyntheticDataset as HD
-    from hemx.models.gan import IwganModel as HM
+    from hemx.models.plugin import get_model as hemx_model
     from hemx_torch.config import build_base_parser
     from hemx_torch.data.synthetic import SyntheticDataset as TD
-    from hemx_torch.models.gan import IwganModel as TM
+    from hemx_torch.models.plugin import available_models, get_model
 
     def defaults(parser):
         return {a.dest: (a.default, a.option_strings[0]) for a in parser._actions
@@ -113,7 +132,13 @@ def test_shared_flags_match_hemx_defaults():
             "centered"} <= set(got)
     for dest in set(got) - {"device"}:
         assert got[dest] == want[dest], dest
-    for hemx_cls, port_cls in ((HD, TD), (HM, TM)):
+    pairs = [(HD, TD)]
+    for name in available_models():
+        assert get_model(name).name == hemx_model(name).name == name
+        pairs.append((hemx_model(name), get_model(name)))
+    assert {"--vae_parity_loss", "--latent_size"} <= set(
+        get_model("vae").arguments())
+    for hemx_cls, port_cls in pairs:
         h_args = hemx_cls.arguments()
         for flag, spec in port_cls.arguments().items():
             assert spec.get("default") == h_args[flag].get("default"), flag

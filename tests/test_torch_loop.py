@@ -195,3 +195,62 @@ def test_profile_writes_a_trace(tmp_path):
             + ["--dir", str(tmp_path)])
     trace = tmp_path / "profile" / "trace.json"
     assert trace.exists() and trace.stat().st_size > 0
+
+
+# the single-network models: 16 images of 16 px, batch 4, epochs of 3
+# calls, summaries twice per epoch with the per-layer stats
+ZOO = dict(seed=4, batch_size=4, latent_size=8, synthetic_count=16,
+           synthetic_eval_count=8, synthetic_shape=[16, 16, 3],
+           synthetic_u8=True, epoch_size=3, summary_freq=2, examples=4,
+           summarize_activations=True, summarize_gradients=True)
+
+
+def _zoo_argv(name: str, d: dict) -> list:
+    """The port's argv; the CNN's without ``--model`` (it is the
+    default)."""
+    argv = _argv(d)[2:]
+    return argv if name == "cnn" else ["--model", name] + argv
+
+
+@pytest.fixture(scope="module", params=["cnn", "vae"])
+def zoo_runs(request, tmp_path_factory):
+    """hemx.train and the port's CLI with the same flags: one epoch, then
+    ``--epochs +1`` on the same ``--dir``."""
+    import hemx
+    from hemx.data.synthetic import SyntheticDataset
+    from hemx.models.plugin import get_model
+    from hemx.parallel.mesh import make_mesh
+    from hemx_torch import cli
+    name = request.param
+    hemx_dir = tmp_path_factory.mktemp(f"hemx_{name}")
+    port_dir = tmp_path_factory.mktemp(f"port_{name}")
+    mesh = make_mesh(1)
+    results = []
+    for epochs in ("1", "+1"):
+        args = make_args(model=name, dir=str(hemx_dir), epochs=epochs, **ZOO)
+        hemx.train(get_model(name)(args, mesh),
+                   SyntheticDataset.get_datasets(args), args, mesh)
+        results.append(cli.run(_zoo_argv(name, {**ZOO, "epochs": epochs,
+                                                "dir": port_dir})))
+    return name, hemx_dir, port_dir, results
+
+
+def test_zoo_resume_checkpoints_and_summaries_match_hemx(zoo_runs):
+    name, hemx_dir, port_dir, (first, second) = zoo_runs
+    assert first["args"].model == name
+    assert first["summary"]["step"] == 3 and first["epoch"] == 1
+    assert second["resumed"]["step"] == 3 and second["resumed"]["epoch"] == 1
+    assert second["summary"]["step"] == 6 and second["epoch"] == 2
+    assert _ckpt_epochs(port_dir) == _ckpt_epochs(hemx_dir) == [0, 1, 2]
+    want, got = _events(hemx_dir), _events(port_dir)
+    for phase in ("train", "validate"):
+        assert got[phase] == want[phase], phase
+    losses = {"cnn": ["loss", "grad_norm"],
+              "vae": ["d_loss", "l_loss", "total_loss", "grad_norm"]}[name]
+    assert {t for t, k, s in got["train"] if t.startswith("losses/")} == \
+        {f"losses/{k}" for k in losses}
+    from hemx_torch.summaries.reader import get_tag_values
+    tag = "losses/" + losses[0]
+    vals = get_tag_values(str(port_dir / "validate"), tag)
+    assert [s for s, _ in vals] == [3, 6] and all(np.isfinite(v)
+                                                  for _, v in vals)

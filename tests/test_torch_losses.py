@@ -1,4 +1,4 @@
-"""hemx_torch WGAN losses and IWGAN gradient penalty against hemx.ops.losses.
+"""hemx_torch's losses and IWGAN gradient penalty against hemx.ops.losses.
 
 The penalty is compared in both norm modes (the reference's whole-batch
 norm and the per-sample norm), for its value and for its gradient with
@@ -6,6 +6,11 @@ respect to the critic's weights (the double backward), on a small critic
 (one 5x5 stride-2 conv + lrelu, NHWC flatten, dense -> 1) with the same
 JAX-initialized weights. Tolerance rtol 1e-5 / atol 1e-6: float32 on the
 CPU, sums in different orders.
+
+The losses of the BASELINE models (L1, L2, Bernoulli reconstruction, KL,
+the GAN log losses) are compared by value and gradient on the same
+arrays, and at saturation: a sigmoid output of exactly 0 or 1 must give
+the reference's eps-guarded, finite value.
 """
 
 import numpy as np
@@ -111,3 +116,67 @@ def test_wgan_losses_match_hemx():
         float(TLoss.wgan_d_loss(torch.from_numpy(real), torch.from_numpy(fake))),
         float(HLoss.wgan_d_loss(jnp.asarray(real), jnp.asarray(fake))),
         rtol=1e-6)
+
+
+def _pair(rng, shape, kind):
+    if kind == "prob":  # a sigmoid output in (0, 1)
+        return rng.uniform(0.01, 0.99, shape).astype(np.float32)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+# name -> argument kinds (hemx.ops.losses and hemx_torch.ops.losses)
+NEW_LOSSES = {"l1_loss": ("real", "real"), "l2_loss": ("real", "real"),
+              "bernoulli_recon_loss": ("prob", "prob"),
+              "kl_gaussian_loss": ("real", "real"),
+              "gan_g_loss": ("prob",), "gan_d_loss": ("prob", "prob")}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_LOSSES))
+def test_model_losses_match_hemx(name):
+    """Value and gradient of each loss on the same arrays (sum-reduced ones
+    at rtol 1e-5 of their size)."""
+    rng = np.random.default_rng(3)
+    args = [_pair(rng, (4, 5, 6, 3), k) for k in NEW_LOSSES[name]]
+    want, want_g = jax.value_and_grad(getattr(HLoss, name), argnums=tuple(
+        range(len(args))))(*[jnp.asarray(a) for a in args])
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    got = getattr(TLoss, name)(*ts)
+    got_g = torch.autograd.grad(got, ts)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5, atol=1e-6)
+    for g, w in zip(got_g, want_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def test_bernoulli_recon_loss_finite_at_saturation():
+    """x_hat of exactly 1.0 under x == 1 and of 0.0 under x == 0 gives the
+    reference's guarded value, with a finite gradient
+    (tests/test_ops.py::test_vae_recon_loss_finite_at_saturation)."""
+    x = torch.tensor([[1.0, 0.0, 0.5]])
+    x_hat = torch.tensor([[1.0, 0.0, 0.5]], requires_grad=True)
+    val = TLoss.bernoulli_recon_loss(x, x_hat)
+    grad, = torch.autograd.grad(val, x_hat)
+    assert np.isfinite(val.item()) and torch.isfinite(grad).all()
+    want = -np.sum([np.log(1e-8 + 1.0), np.log(1e-8 + 1.0),
+                    np.log(1e-8 + 0.5) * 0.5 + np.log(1e-8 + 0.5) * 0.5])
+    assert val.item() == pytest.approx(want, rel=1e-5)
+    np.testing.assert_allclose(
+        val.item(), float(HLoss.bernoulli_recon_loss(
+            jnp.asarray(x.numpy()), jnp.asarray(x_hat.detach().numpy()))),
+        rtol=1e-6)
+
+
+def test_gan_d_loss_finite_at_saturation():
+    """d_fake of exactly 1.0 gives -log(eps), not -log(0) = inf
+    (tests/test_ops.py::test_gan_d_loss_finite_at_saturation)."""
+    d_real = torch.tensor([0.5, 1.0])
+    d_fake = torch.tensor([1.0, 0.0])
+    val = TLoss.gan_d_loss(d_real, d_fake)
+    want = np.mean([-np.log(0.5 + 1e-8) - np.log(1e-8),
+                    -np.log(1.0 + 1e-8) - np.log(1.0 + 1e-8)])
+    assert np.isfinite(val.item())
+    assert val.item() == pytest.approx(want, rel=1e-5)
+    np.testing.assert_allclose(
+        val.item(), float(HLoss.gan_d_loss(jnp.asarray(d_real.numpy()),
+                                           jnp.asarray(d_fake.numpy()))),
+        rtol=1e-6)
+    assert np.isfinite(TLoss.gan_g_loss(torch.tensor([0.0, 1.0])).item())
