@@ -54,11 +54,28 @@ prints its last line):
    and validate losses at the expected steps, bf16 conv outputs, the input
    kernel's launch count for the model's batch group). Prints each model's
    median call time and images/s.
+9. The data layer at full width: a raw floorplan directory (4,096 train,
+   512 validate and 512 test RGB PNGs of 128x128, row y written with PNG
+   filter y % 5, so every unfilter path runs) converted by the port's
+   plugin into records; IWGAN bf16 (latent 200, bs512, 5+1, Adam, 1 epoch
+   of 6 calls) through ``cli.run --dataset floorplan`` on the device cache
+   (a) and with ``--no-device_data_cache`` (b: the streaming Pipeline, one
+   6-batch group per call, one pinned H2D copy each). Checks step 6, finite
+   losses, no resume, the input kernel's launches on each path (groups,
+   tails, summary batch, validation batches), the streamed bytes, and that
+   (b)'s batches equal (a)'s bit for bit on the card over 2 data epochs.
+   Then 512 NYUv2-format frames (RGB 120x160 and 16-bit depth, one frame
+   per split with a sensor gap): the CNN in bf16 on 64x64 random crops,
+   bs64, 4 calls, streaming (the split has a host transform). Checks the
+   gap frames dropped, finite losses, and the first streamed batch equal
+   to the CPU split's. Prints the conversion seconds, the host
+   materialization rate (images/s decoded and resized), each run's median
+   call and images/s, and the H2D GB/s of the streamed copies.
 
 The line before the last is a JSON list of the kernels with their launch
-counts from phases 4, 6 and 8 (each path's counts set to 0 just before it
-and read just after), their phase-2 errors and times, and their bound; the
-last line is ``{"ok": true, "device": {...}}``.
+counts from phases 4, 6, 8 and 9 (each path's counts set to 0 just before
+it and read just after), their phase-2 errors and times, and their bound;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -80,6 +97,50 @@ HBM_BYTES_PER_S = 3.35e12
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def png_bytes(img, filters=None) -> bytes:
+    """PNG file bytes of ``img``: uint8 (H, W, C) with C 1-4 (grey, grey +
+    alpha, RGB, RGBA), or uint16 (H, W) / (H, W, 1) as 16-bit grey. Row
+    ``y`` is written with PNG filter ``filters[y]`` (default ``y % 5``, so
+    one image holds all five); the forward filters are vectorised."""
+    import struct
+    import zlib
+
+    import numpy as np
+    img = np.asarray(img)
+    if img.dtype == np.uint16:
+        h, w = img.shape[:2]
+        rows = img.reshape(h, w).astype(">u2").view(np.uint8).reshape(h, -1)
+        depth, ctype, bpp = 16, 0, 2
+    else:
+        img = img[:, :, None] if img.ndim == 2 else img
+        h, w, c = img.shape
+        rows = img.reshape(h, -1)
+        depth, ctype, bpp = 8, {1: 0, 2: 4, 3: 2, 4: 6}[c], c
+    x = rows.astype(np.int16)
+    up = np.vstack([np.zeros_like(x[:1]), x[:-1]])
+    left = np.hstack([np.zeros_like(x[:, :bpp]), x[:, :-bpp]])
+    up_left = np.hstack([np.zeros_like(up[:, :bpp]), up[:, :-bpp]])
+    p = left + up - up_left
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, up_left))
+    kinds = (np.arange(h) % 5 if filters is None
+             else np.asarray(filters, np.int64))
+    pred = np.stack([np.zeros_like(x), left, up, (left + up) // 2,
+                     paeth])[kinds, np.arange(h)]
+    data = np.hstack([kinds[:, None].astype(np.uint8),
+                      ((x - pred) & 255).astype(np.uint8)])
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0,
+                                         0, 0))
+            + chunk(b"IDAT", zlib.compress(data.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def phase_card(torch) -> str:
@@ -636,6 +697,262 @@ def phase_zoo_bf16_runs(torch, dev, card: str, workdir: str, *,
     return launches
 
 
+def floorplan_image(rng, size: int):
+    """A floorplan-like RGB drawing: pale rooms with dark walls on white."""
+    import numpy as np
+    img = np.full((size, size, 3), 255, np.uint8)
+    for _ in range(int(rng.integers(4, 9))):
+        y0, x0 = rng.integers(0, size - 16, 2)
+        h, w = rng.integers(12, size // 2, 2)
+        y1, x1 = min(y0 + h, size), min(x0 + w, size)
+        img[y0:y1, x0:x1] = rng.integers(190, 256, 3)
+        for ys, xs in ((slice(y0, y0 + 2), slice(x0, x1)),
+                       (slice(y1 - 2, y1), slice(x0, x1)),
+                       (slice(y0, y1), slice(x0, x0 + 2)),
+                       (slice(y0, y1), slice(x1 - 2, x1))):
+            img[ys, xs] = 40
+    return img
+
+
+def write_floorplan_raw(raw: str, counts: dict, size: int, seed: int) -> int:
+    """A raw floorplan directory: ``counts[split]`` RGB PNGs of size x size
+    (row y with PNG filter y % 5) and the three list files. Returns the
+    PNG bytes written."""
+    import numpy as np
+    lists = {"train": "train_set.txt", "validate": "validation_set.txt",
+             "test": "test_set.txt"}
+    rng = np.random.default_rng(seed)
+    total = 0
+    os.makedirs(raw, exist_ok=True)
+    for split, n in counts.items():
+        names = [f"{split}_{i:05d}.png" for i in range(n)]
+        for name in names:
+            data = png_bytes(floorplan_image(rng, size))
+            total += len(data)
+            with open(os.path.join(raw, name), "wb") as f:
+                f.write(data)
+        with open(os.path.join(raw, lists[split]), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return total
+
+
+def write_nyuv2_raw(raw: str, counts: dict, h: int, w: int, seed: int) -> None:
+    """NYUv2-format frames: ``<frame>_i.png`` RGB and ``<frame>_f.png``
+    16-bit grey depth in [2000, 50000], smooth scenes; frame 0 of each
+    split has a sensor gap (a depth of 0), which the plugin drops."""
+    import numpy as np
+    lists = {"train": "train.txt", "validate": "validation.txt",
+             "test": "test.txt"}
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    os.makedirs(raw, exist_ok=True)
+    for split, n in counts.items():
+        frames = [f"{split}_{i:04d}" for i in range(n)]
+        for i, frame in enumerate(frames):
+            g = rng.uniform(-1, 1, (2, 3))
+            rgb = 128 + 60 * (g[0] * (yy / h)[..., None]
+                              + g[1] * (xx / w)[..., None])
+            depth = 2000 + 48000 * (0.5 + 0.25 * (rng.uniform(-1, 1)
+                                                  * yy / h + rng.uniform(
+                                                      -1, 1) * xx / w))
+            for _ in range(3):
+                y0, x0 = rng.integers(0, h - 20), rng.integers(0, w - 20)
+                rgb[y0:y0 + 20, x0:x0 + 20] = rng.integers(0, 256, 3)
+                depth[y0:y0 + 20, x0:x0 + 20] = rng.uniform(2000, 50000)
+            depth = depth.astype(np.uint16)
+            if i == 0:
+                depth[h // 2, w // 2] = 0
+            with open(os.path.join(raw, frame + "_i.png"), "wb") as f:
+                f.write(png_bytes(np.clip(rgb, 0, 255).astype(np.uint8)))
+            with open(os.path.join(raw, frame + "_f.png"), "wb") as f:
+                f.write(png_bytes(depth))
+        with open(os.path.join(raw, lists[split]), "w") as f:
+            f.write("\n".join(frames) + "\n")
+
+
+def decode_costs(raw: str, size: int, n: int = 256) -> None:
+    """Host ms per image of the floorplan parse's parts, on ``n`` of the
+    raw PNGs: decode when every row is filtered None (inflate and the
+    vectorised path only), decode with rows filtered y % 5 (as written),
+    and the 64x64 resize."""
+    from hemx_torch.data.imageio import decode_image, resize_bilinear
+    names = sorted(f for f in os.listdir(raw)
+                   if f.startswith("train_") and f.endswith(".png"))[:n]
+    files = []
+    for name in names:
+        with open(os.path.join(raw, name), "rb") as f:
+            files.append(f.read())
+    imgs = [decode_image(d) for d in files]
+    plain = [png_bytes(im, [0] * size) for im in imgs]
+    ms = {}
+    for label, fn, items in (
+            ("decode, filter None", decode_image, plain),
+            ("decode, filters y % 5", decode_image, files),
+            ("resize to 64x64", lambda im: resize_bilinear(im, 64, 64),
+             imgs)):
+        t0 = time.perf_counter()
+        for item in items:
+            fn(item)
+        ms[label] = (time.perf_counter() - t0) / len(items) * 1e3
+    print(f"host parse of a {size}x{size} floorplan PNG, ms per image over "
+          f"{len(files)}: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()),
+          flush=True)
+
+
+def stream_groups(per_epoch: int, group: int, consumed: int) -> list:
+    """The batch groups the streaming Pipeline sends while a stream yields
+    ``consumed`` batches, by size: ``group`` batches each, the epoch's
+    tail group shorter; a group is copied and normalized (one input-kernel
+    launch) when its first batch is drawn."""
+    sizes, got = [], 0
+    while got < consumed:
+        left = per_epoch
+        while left and got < consumed:
+            sizes.append(min(group, left))
+            got, left = got + sizes[-1], left - sizes[-1]
+    return sizes
+
+
+def phase_data(torch, dev, card: str, workdir: str, *, size: int = 128,
+               counts=(4096, 512, 512), batch: int = 512, calls: int = 6,
+               nyu_counts=(384, 65, 63), nyu_batch: int = 64,
+               nyu_calls: int = 4) -> dict:
+    """The data layer at full width: raw floorplan PNGs -> the plugin's
+    records -> IWGAN bf16 through ``cli.run`` on the device cache (a) and
+    streaming (b); then NYUv2 frames -> the CNN on random crops
+    (streaming: the split has a host transform). Returns the input kernel's
+    launches of each run."""
+    from hemx_torch import cli
+    from hemx_torch.data.pipeline import DeviceDataPipeline, Pipeline
+    from hemx_torch.data.plugin import get_dataset
+    from hemx_torch.ops import input_kernels as K
+
+    raw, store = os.path.join(workdir, "raw"), os.path.join(workdir, "store")
+    split_counts = dict(zip(("train", "validate", "test"), counts))
+    t0 = time.perf_counter()
+    png_total = write_floorplan_raw(raw, split_counts, size, seed=0)
+    write_s = time.perf_counter() - t0
+    plugin = get_dataset("floorplan")
+    t0 = time.perf_counter()
+    plugin.convert_to_tfrecord(raw, os.path.join(store, "floorplan"))
+    convert_s = time.perf_counter() - t0
+    record_bytes = sum(os.path.getsize(os.path.join(store, "floorplan", f))
+                       for f in os.listdir(os.path.join(store, "floorplan")))
+    print(f"floorplan raw: {sum(counts)} RGB PNGs of {size}x{size} (rows "
+          f"filtered y % 5), {png_total} bytes, written in {write_s:.2f} s; "
+          f"converted by the plugin to {record_bytes} bytes of records in "
+          f"{convert_s:.2f} s ({sum(counts) / convert_s:.1f} images/s)",
+          flush=True)
+
+    argv = ["--model", "iwgan", "--dataset", "floorplan", "--raw_dataset_dir",
+            raw, "--dataset_dir", store, "--batch_size", str(batch),
+            "--latent_size", "200", *IWGAN_FLAGS, "--dtype", "bfloat16",
+            "--epochs", "1", "--epoch_size", str(calls), "--device", str(dev),
+            "--seed", "0"]
+    runs, launches = {}, {}
+    for name, extra in (("cached", []), ("streaming",
+                                         ["--no-device_data_cache"])):
+        K.reset_launches()
+        runs[name] = cli.run(argv + ["--dir", os.path.join(workdir, name)]
+                             + extra)
+        launches[name] = K.LAUNCHES["gather_u8_normalize"]
+    a, b = runs["cached"], runs["streaming"]
+    check(isinstance(a["pipeline"], DeviceDataPipeline)
+          and isinstance(b["pipeline"], Pipeline),
+          f"feeders {type(a['pipeline'])}, {type(b['pipeline'])}")
+    b["pipeline"].drain()
+    h2d_bytes, h2d_s = b["pipeline"].h2d_bytes, b["pipeline"].h2d_s
+    stage_s = b["pipeline"].stage_s
+    per_epoch, consumed = counts[0] // batch, calls * 6
+    groups = stream_groups(per_epoch, 6, consumed)
+    # + the summary batch and one per validation batch
+    want = {"cached": expected_launches(per_epoch, 6, consumed) + 1
+            + counts[1] // batch,
+            "streaming": len(groups) + 1 + counts[1] // batch}
+    for name, res in runs.items():
+        hist = res["history"]
+        check(res["train_state"].step == calls and res["resumed"] is None,
+              f"{name}: step {res['train_state'].step}, resumed "
+              f"{res['resumed']}")
+        check(all(math.isfinite(r[k]) for r in hist
+                  for k in ("g_loss", "d_loss")), f"{name}: losses {hist}")
+        check(launches[name] == want[name],
+              f"{name}: input kernel launched {launches[name]} times, "
+              f"expected {want[name]}")
+    check(h2d_bytes == sum(groups) * batch * 64 * 64 * 3,
+          f"streamed {h2d_bytes} bytes over H2D, expected groups {groups}")
+    compared = 0
+    for e in range(2):
+        got = list(b["pipeline"].epoch(e))
+        ref = list(a["pipeline"].epoch(e))
+        check(len(got) == len(ref) == per_epoch,
+              f"epoch {e}: {len(got)} streamed, {len(ref)} cached batches")
+        for g, r in zip(got, ref):
+            check(g["image"].device == r["image"].device == dev
+                  and torch.equal(g["image"], r["image"]),
+                  f"epoch {e}: a streamed batch differs from the cached one")
+            compared += 1
+    mat = {n: r["timings"]["materialize_s"] for n, r in runs.items()}
+    for name, res in runs.items():
+        s = res["summary"]
+        secs = [round(r["seconds"], 4) for r in res["history"]]
+        print(f"IWGAN bf16 from floorplan records ({name}), bs{batch} 64x64x3 "
+              f"latent 200, 5+1, Adam, {calls} calls on {card}: first call "
+              f"{s['first_call_s']:.4f} s, median call "
+              f"{s['median_call_s']:.4f} s, {s['images_per_s']:.1f} images/s "
+              f"(calls 2-{calls}); host materialization of the train split "
+              f"{mat[name]:.2f} s = {counts[0] / mat[name]:.1f} images/s "
+              f"decoded and resized; {launches[name]} input-kernel launches "
+              f"(expected {want[name]}); calls s {secs}", flush=True)
+    print(f"streaming H2D: {h2d_bytes} bytes in {h2d_s * 1e3:.3f} ms of "
+          f"CUDA-event time over {len(groups)} pinned group copies "
+          f"(groups of {groups}) = {h2d_bytes / h2d_s / 1e9:.2f} GB/s on "
+          f"{card}; filling the pinned buffers took {stage_s * 1e3:.2f} ms "
+          f"on the host ({h2d_bytes / stage_s / 1e9:.2f} GB/s); {compared} "
+          f"streamed batches over 2 data epochs equal the cached ones bit "
+          f"for bit on the card", flush=True)
+    decode_costs(raw, size)
+
+    nyu_raw = os.path.join(workdir, "nyu_raw")
+    nyu = dict(zip(("train", "validate", "test"), nyu_counts))
+    write_nyuv2_raw(nyu_raw, nyu, 120, 160, seed=1)
+    nyu_argv = ["--model", "cnn", "--dataset", "nyuv2", "--raw_dataset_dir",
+                nyu_raw, "--dataset_dir", store, "--random_crop", "64", "64",
+                "--batch_size", str(nyu_batch), "--latent_size", "200",
+                "--optimizer", "rmsprop", "--lr", "1e-4", "--dtype",
+                "bfloat16", "--epochs", "1", "--epoch_size", str(nyu_calls),
+                "--device", str(dev), "--dir", os.path.join(workdir, "nyu"),
+                "--seed", "0"]
+    K.reset_launches()
+    n = cli.run(nyu_argv)
+    launches["nyuv2"] = K.LAUNCHES["gather_u8_normalize"]
+    check(isinstance(n["pipeline"], Pipeline), "nyuv2 did not stream")
+    check(n["train_state"].step == nyu_calls and n["resumed"] is None
+          and all(math.isfinite(r["loss"]) for r in n["history"]),
+          f"nyuv2: step {n['train_state'].step}, history {n['history']}")
+    check(launches["nyuv2"] == 0,
+          f"nyuv2's float images launched the u8 kernel {launches['nyuv2']}x")
+    cpu_splits = get_dataset("nyuv2").get_datasets(n["args"])
+    got_counts = {k: s.count for k, s in cpu_splits.items()}
+    check(got_counts == {k: v - 1 for k, v in nyu.items()},
+          f"nyuv2 split sizes {got_counts}: the gap frames were not dropped")
+    first = next(n["pipeline"].epoch(0))["image"]
+    host = next(cpu_splits["train"].iter_epoch(nyu_batch, seed=0, epoch=0))
+    check(first.device == dev and torch.equal(
+        first.cpu(), torch.from_numpy(host["image"]).permute(0, 3, 1, 2)),
+        "the first streamed NYUv2 batch differs from the CPU split's")
+    s = n["summary"]
+    nm = n["timings"]["materialize_s"]
+    print(f"CNN bf16 on NYUv2 64x64 crops of 120x160 frames, bs{nyu_batch}, "
+          f"rmsprop, {nyu_calls} calls streaming on {card}: median call "
+          f"{s['median_call_s']:.4f} s, {s['images_per_s']:.1f} images/s; "
+          f"splits {got_counts} after the gap filter; host materialization "
+          f"{nm:.2f} s = {got_counts['train'] / nm:.1f} frames/s (RGB + "
+          f"16-bit depth decoded); first streamed batch equals the CPU "
+          f"split's", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -673,6 +990,9 @@ def main() -> int:
               "resume", flush=True)
         launches_zoo = phase_zoo_bf16_runs(torch, dev, card,
                                            os.path.join(workdir, "zoo"))
+        print("== phase 9: the data layer at full width", flush=True)
+        launches_data = phase_data(torch, dev, card,
+                                   os.path.join(workdir, "data"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"kernels": [{
@@ -680,7 +1000,10 @@ def main() -> int:
         "source": "hemx_torch/ops/input_kernels.py",
         "replaces": "hemx/ops/pallas_kernels.py:75",
         "launches": launches, "launches_bf16_run": launches_bf16,
-        "launches_by_model_bf16_run": launches_zoo, **kern}]}),
+        "launches_by_model_bf16_run": launches_zoo,
+        "launches_floorplan_cached": launches_data["cached"],
+        "launches_streaming": launches_data["streaming"],
+        "launches_nyuv2_streaming": launches_data["nyuv2"], **kern}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

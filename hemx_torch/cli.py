@@ -5,7 +5,13 @@
     python -m hemx_torch.cli ... --dir workspace/iwgan --epochs +1   # resume
 
 ``--model`` is one of ``cnn`` (the default, as in ``train.py``), ``vae``,
-``gan``, ``wgan`` and ``iwgan``.
+``gan``, ``wgan`` and ``iwgan``; ``--dataset`` one of ``floorplan`` (the
+default), ``mnist``, ``cifar``, ``nyuv2`` and ``synthetic``. A dataset
+whose records are not in ``--dataset_dir`` is converted from its raw files
+in ``--raw_dataset_dir`` first:
+
+    python -m hemx_torch.cli --model cnn --dataset mnist \
+        --raw_dataset_dir <raw> --dataset_dir <records> [--no-device_data_cache]
 
 Flags are ``hemx``'s (see ``hemx_torch.config``) plus ``--device``
 (default ``cuda``); the workspace (checkpoints, events, options) has
@@ -33,7 +39,8 @@ def run(argv=None) -> dict:
     """Parse, build and train; returns the loop's result plus "args" and
     "summary"."""
     from hemx_torch.config import parse_args
-    from hemx_torch.data.synthetic import get_dataset
+    from hemx_torch.data.plugin import (get_dataset, get_dataset_tensors,
+                                        unknown_dataset_message)
     from hemx_torch.models.plugin import available_models, get_model
     from hemx_torch.ops.layers import set_precision
     from hemx_torch.train import loop
@@ -47,13 +54,11 @@ def run(argv=None) -> dict:
     if model_cls is None:
         raise CliError(f"unknown model '{args.model}'. Available in "
                        f"hemx_torch: {available_models()}", code=2)
-    dataset_cls = get_dataset(args.dataset)
-    if dataset_cls is None:
-        raise CliError(f"dataset '{args.dataset}' is not ported to "
-                       f"hemx_torch (available: ['synthetic'])")
+    if get_dataset(args.dataset) is None:
+        raise CliError(unknown_dataset_message(args.dataset))
     set_precision(args.precision)
     model = model_cls(args, device)
-    splits = dataset_cls.get_datasets(args)
+    splits = get_dataset_tensors(args)
     result = loop.train(model, splits, args, device)
     result["args"] = args
     result["summary"] = loop.summarize(result, args.batch_size, device)

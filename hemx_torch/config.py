@@ -1,7 +1,9 @@
 """Command-line flags of the port (counterpart of ``hemx.config``).
 
 Every flag the port reads has ``hemx.config``'s name and default (pinned by
-``tests/test_torch_cli.py``); ``--device`` is new. Parsing is ``hemx``'s
+``tests/test_torch_cli.py``); ``--device`` is new. ``--buffer_size``,
+``--cache_dir`` and ``--n_threads`` are accepted and unread, as in
+``hemx``. Parsing is ``hemx``'s
 three phases — general flags, then the dataset's, then the model's — and
 flags the port does not read are reported and ignored, as ``hemx`` does
 with unknown flags. ``init_working_dir`` writes the resolved options to
@@ -91,16 +93,42 @@ def build_base_parser() -> argparse.ArgumentParser:
     data.add_argument("--dataset", type=str.lower, default="floorplan")
     data.add_argument("--shuffle", action=argparse.BooleanOptionalAction,
                       default=True)
+    data.add_argument("--buffer_size", type=int, default=10000,
+                      help="Unread: the epoch is shuffled whole, as in "
+                           "hemx.")
+    data.add_argument("--resize", type=int, nargs=2, default=None,
+                      metavar=("H", "W"),
+                      help="Resize input images for any dataset (TF1 "
+                           "bilinear); nyuv2's own --resize takes precedence "
+                           "there.")
+    data.add_argument("--grayscale", action="store_true", default=False,
+                      help="Convert RGB input images to single-channel luma.")
+    data.add_argument("--cache_dir", default=None,
+                      help="Unread, as in hemx: decoded samples are cached "
+                           "in memory.")
+    data.add_argument("--raw_dataset_dir", default="/tmp",
+                      help="Where a dataset's raw files are (converted to "
+                           "records when --dataset_dir has none).")
+    data.add_argument("--dataset_dir", default="datasets",
+                      help="Where the converted records are kept, one "
+                           "directory per dataset.")
+    data.add_argument("--n_threads", type=int, default=os.cpu_count() or 1,
+                      help="Unread, as in hemx.")
     data.add_argument("--device_data_cache",
                       action=argparse.BooleanOptionalAction, default=True,
-                      help="Keep the dataset on the device (the only input "
-                           "path ported).")
-    data.add_argument("--device_cache_mb", type=int, default=1024)
+                      help="Keep the whole compact dataset on the device and "
+                           "gather batches there when it fits "
+                           "--device_cache_mb; other splits (host "
+                           "augmentation, too large, or --no-device_data_cache)"
+                           " stream through the host pipeline.")
+    data.add_argument("--device_cache_mb", type=int, default=1024,
+                      help="Device memory budget of --device_data_cache, per "
+                           "split.")
     return parser
 
 
 def parse_args(argv=None):
-    from hemx_torch.data.synthetic import get_dataset
+    from hemx_torch.data.plugin import get_dataset
     from hemx_torch.models.plugin import get_model
 
     argv = list(sys.argv[1:] if argv is None else argv)

@@ -1,2 +1,4 @@
-"""Data sources, splits and the device-resident pipeline (counterpart of
-``hemx.data``); only the synthetic dataset so far."""
+"""Data layer (counterpart of ``hemx.data``): TFRecord IO, PNG decode and
+resize, sources, splits, the device-resident cache and the streaming
+pipeline, and the dataset plugins (mnist, cifar, floorplan, nyuv2,
+synthetic)."""

@@ -4,7 +4,8 @@ A numpy copy of ``hemx``'s ``_make_images`` and of its uint8 rounding,
 pinned equal to the original by ``tests/test_torch_data.py``. The train,
 validate and test splits are seeded ``seed``, ``seed + 1`` and ``seed + 2``
 as in ``hemx``; only the ``image`` key is built (the ported models read
-nothing else).
+nothing else). Registered as the ``synthetic`` dataset plugin; nothing is
+converted or downloaded.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from hemx_torch.data.pipeline import ArraySource, Split, U8Normalize
+from hemx_torch.data.plugin import DataPlugin
 
 
 def _make_images(n: int, h: int, w: int, c: int, seed: int,
@@ -50,7 +52,9 @@ def to_u8(images: np.ndarray) -> np.ndarray:
     return np.round(images * 255.0).astype(np.uint8)
 
 
-class SyntheticDataset:
+class SyntheticDataset(DataPlugin):
+    name = "synthetic"
+
     @staticmethod
     def arguments() -> dict:
         return {
@@ -68,6 +72,22 @@ class SyntheticDataset:
                      "(the real-dataset path); float32 otherwise."),
         }
 
+    @staticmethod
+    def check_prepared_datasets(storage_dir: str) -> bool:
+        return True  # generated on the fly
+
+    @staticmethod
+    def check_raw_datasets(storage_dir: str) -> bool:
+        return True
+
+    @staticmethod
+    def download(download_dir: str) -> bool:
+        return True
+
+    @staticmethod
+    def convert_to_tfrecord(download_dir: str, storage_dir: str) -> None:
+        pass
+
     @classmethod
     def get_datasets(cls, args) -> dict:
         """{"train", "validate", "test": Split} with the ``image`` key, each
@@ -82,13 +102,6 @@ class SyntheticDataset:
             if args.synthetic_u8:
                 images = to_u8(images)
                 dt = U8Normalize(keys=("image",))
-            splits[name] = Split(ArraySource({"image": images}),
+            splits[name] = Split(ArraySource({"image": images}), name=name,
                                  device_transform=dt)
         return splits
-
-
-_DATASETS = {"synthetic": SyntheticDataset}
-
-
-def get_dataset(name: str):
-    return _DATASETS.get(name)

@@ -1,6 +1,8 @@
-"""Protobuf wire format for tfevents (copy of the Event / Summary /
-HistogramProto part of ``hemx.summaries.proto``). Field numbers follow
-tensorflow/core/util/event.proto and framework/summary.proto."""
+"""Protobuf wire format for tfevents and TFRecord Examples (copy of
+``hemx.summaries.proto``): Event, Summary, Summary.Image, HistogramProto and
+the tf.train.Example feature messages of the data layer. Field numbers
+follow tensorflow/core/util/event.proto, framework/summary.proto and
+example/example.proto."""
 
 from __future__ import annotations
 
@@ -133,3 +135,91 @@ def event(wall_time: float, step: int = 0, *, file_version: str | None = None,
     if summary_bytes is not None:
         out += enc_message(5, summary_bytes)
     return out
+
+
+# --- example.proto (tf.train.Example) --------------------------------------
+
+def feature_bytes(values: list[bytes]) -> bytes:
+    # Feature{bytes_list=1{value=1}}
+    bl = b"".join(enc_bytes(1, v) for v in values)
+    return enc_message(1, bl)
+
+
+def feature_int64(values) -> bytes:
+    # Feature{int64_list=3{value=1 packed}}
+    body = b"".join(enc_varint(int(v) & 0xFFFFFFFFFFFFFFFF) for v in values)
+    il = enc_bytes(1, body)  # packed repeated int64
+    return enc_message(3, il)
+
+
+def feature_float(values) -> bytes:
+    # Feature{float_list=2{value=1 packed}}
+    body = b"".join(struct.pack("<f", float(v)) for v in values)
+    fl = enc_bytes(1, body)
+    return enc_message(2, fl)
+
+
+def example(features: dict[str, bytes]) -> bytes:
+    # Example{features=1{feature=1 map<string,Feature>}}
+    entries = b""
+    for name, feat in features.items():
+        entry = enc_string(1, name) + enc_message(2, feat)
+        entries += enc_message(1, entry)
+    return enc_message(1, entries)
+
+
+def parse_example(buf: bytes) -> dict[str, dict]:
+    """Decode a tf.train.Example into {name: {'bytes'|'int64'|'float': list}}."""
+    result: dict[str, dict] = {}
+    for f, wt, v in iter_fields(buf):          # Example
+        if f != 1:
+            continue
+        for f2, wt2, v2 in iter_fields(v):     # Features
+            if f2 != 1:
+                continue
+            name = None
+            feat = None
+            for f3, wt3, v3 in iter_fields(v2):  # map entry
+                if f3 == 1:
+                    name = v3.decode("utf-8")
+                elif f3 == 2:
+                    feat = v3
+            if name is None or feat is None:
+                continue
+            result[name] = _parse_feature(feat)
+    return result
+
+
+def _parse_feature(buf: bytes) -> dict:
+    for f, wt, v in iter_fields(buf):  # Feature oneof
+        if f == 1:   # BytesList
+            vals = [x for ff, _, x in iter_fields(v) if ff == 1]
+            return {"bytes": vals}
+        if f == 2:   # FloatList
+            vals = []
+            for ff, wt2, x in iter_fields(v):
+                if ff != 1:
+                    continue
+                if wt2 == 2:  # packed
+                    vals.extend(struct.unpack(f"<{len(x)//4}f", x))
+                else:
+                    vals.append(x)
+            return {"float": vals}
+        if f == 3:   # Int64List
+            vals = []
+            for ff, wt2, x in iter_fields(v):
+                if ff != 1:
+                    continue
+                if wt2 == 2:  # packed
+                    pos = 0
+                    while pos < len(x):
+                        n, pos = dec_varint(x, pos)
+                        if n >= 1 << 63:
+                            n -= 1 << 64
+                        vals.append(n)
+                else:
+                    if x >= 1 << 63:
+                        x -= 1 << 64
+                    vals.append(x)
+            return {"int64": vals}
+    return {}

@@ -21,10 +21,20 @@ and restarts at the data epoch of the restored training epoch, as in
 hemx: a model may pull several batches per call, so an epoch is a number of
 calls (``--epoch_size`` caps it), not of pipeline batches.
 
+Input, as in hemx: the device-resident cache when the train split
+qualifies (``--device_data_cache``, in-memory arrays within
+``--device_cache_mb``, no host ``batch_transform``), else the streaming
+``Pipeline``, grouped by the model's batches per call. Validation and test
+use the cache when their split qualifies and stream batch by batch
+otherwise. The input shape and the summary batch come from the train
+split's first host batch in order (after its host transform, e.g. NYUv2's
+crop), placed on the device.
+
 Each call's losses and wall time are recorded; the time is taken on the
 host clock around the train call and a device synchronize, so it covers the
 call's device work and nothing else (summaries, checkpoints and validation
-are timed apart, in ``timings``).
+are timed apart, in ``timings``, with the train split's host
+materialization: records read, decoded and stacked).
 """
 
 from __future__ import annotations
@@ -33,12 +43,11 @@ import os
 import statistics
 import time
 
-import numpy as np
 import torch
 
 from hemx_torch import convert
 from hemx_torch.config import init_working_dir
-from hemx_torch.data.pipeline import DeviceDataPipeline
+from hemx_torch.data.pipeline import DeviceDataPipeline, Pipeline, place_batch
 from hemx_torch.models import common
 from hemx_torch.summaries.events import SummaryWriterSet
 from hemx_torch.train.checkpoint import CheckpointManager
@@ -51,27 +60,36 @@ except ImportError:  # pragma: no cover
     tqdm = None
 
 
-def _continuous_stream(pipeline: DeviceDataPipeline, start_epoch: int = 0):
+def _continuous_stream(pipeline, start_epoch: int = 0):
     e = start_epoch
     while True:
         yield from pipeline.epoch(e)
         e += 1
 
 
-def _pipeline(split, args, device, keys, *, shuffle: bool, seed: int,
-              group: int = 1) -> DeviceDataPipeline:
-    pipeline = None
-    if args.device_data_cache:
-        pipeline = DeviceDataPipeline.maybe(
-            split, args.batch_size, device=device, keys=keys, shuffle=shuffle,
-            seed=seed, budget_mb=args.device_cache_mb, group=group)
-    if pipeline is None:
-        raise NotImplementedError(
-            "the dataset does not fit --device_cache_mb (or "
-            "--no-device_data_cache was given); the streaming host pipeline "
-            "is not ported to hemx_torch yet (ROADMAP: the streaming "
-            "Pipeline)")
-    return pipeline
+def _cached(split, args, device, keys, *, shuffle: bool, seed: int,
+            group: int = 1):
+    """The split's DeviceDataPipeline, or None when it must stream."""
+    if not args.device_data_cache:
+        return None
+    return DeviceDataPipeline.maybe(
+        split, args.batch_size, device=device, keys=keys, shuffle=shuffle,
+        seed=seed, budget_mb=args.device_cache_mb, group=group)
+
+
+def _pipeline(split, args, device, keys, *, group: int):
+    """The train feeder: the device cache, or the streaming Pipeline with
+    one group of ``group`` batches (one train call's) per transfer."""
+    pipeline = _cached(split, args, device, keys, shuffle=args.shuffle,
+                       seed=args.seed, group=group)
+    if pipeline is not None:
+        term.message("Input: device-resident dataset cache (batches "
+                     "gathered on the device, no per-step H2D)")
+        return pipeline
+    term.message(f"Input: streaming pipeline ({group} batch(es) per H2D "
+                 f"copy)")
+    return Pipeline(split, args.batch_size, device=device, keys=keys,
+                    shuffle=args.shuffle, seed=args.seed, group=group)
 
 
 def _sync(device: torch.device) -> None:
@@ -82,9 +100,11 @@ def _sync(device: torch.device) -> None:
 def train(model, splits, args, device) -> dict:
     """Train ``model`` on ``splits`` per ``args``. Returns {"train_state",
     "epoch", "history" (per call of this run: losses and "seconds"),
-    "pipeline", "resumed" (None, or the restored checkpoint's path, epoch
-    and step), "timings" (seconds of each checkpoint save, restore and
-    summary write, and checkpoint bytes)}."""
+    "pipeline" (the train feeder), "resumed" (None, or the restored
+    checkpoint's path, epoch and step), "timings" (seconds of each
+    checkpoint save, restore and summary write, checkpoint bytes, and the
+    train split's materialization seconds, None for a source that was in
+    memory)}."""
     device = torch.device(device)
     split = splits["train"]
     batches = split.batches_per_epoch(args.batch_size)
@@ -94,7 +114,6 @@ def train(model, splits, args, device) -> dict:
         raise ValueError(f"dataset ({split.count}) smaller than one global "
                          f"batch ({args.batch_size})")
     pipeline = _pipeline(split, args, device, model.batch_keys,
-                         shuffle=args.shuffle, seed=args.seed,
                          group=model.batches_per_train_call())
     init_working_dir(args)
     ckpt = CheckpointManager(args.dir, args.max_to_keep)
@@ -107,10 +126,13 @@ def train(model, splits, args, device) -> dict:
 
 
 def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
+    split = splits["train"]
     timings = {"save_s": [], "restore_s": [], "summary_s": [],
-               "checkpoint_bytes": []}
-    summary_batch = pipeline.batch(np.arange(args.batch_size))
-    h, w, c = splits["train"].source.arrays["image"].shape[1:]
+               "checkpoint_bytes": [],
+               "materialize_s": getattr(split.source, "materialize_s", None)}
+    host_batch = next(split.iter_epoch(args.batch_size, shuffle=False))
+    h, w, c = host_batch["image"].shape[1:]
+    summary_batch = place_batch(host_batch, split, device, model.batch_keys)
     ts = model.init_state((c, h, w), args.seed)
 
     def save(epoch: int) -> None:
@@ -237,11 +259,17 @@ def _stop_profile(prof, workdir: str) -> None:
 def inference(model, ts, split, args, device, writer, step: int, *,
               label: str = "Validation") -> dict:
     """Average eval losses over a split's batches (in order) and write one
-    summary."""
-    feeder = _pipeline(split, args, device, model.batch_keys, shuffle=False,
-                       seed=0)
+    summary. The batches come from the device cache when the split
+    qualifies, else host batch by host batch."""
+    feeder = _cached(split, args, device, model.batch_keys, shuffle=False,
+                     seed=0)
+    if feeder is not None:
+        batches = feeder.epoch(0)
+    else:
+        batches = (place_batch(b, split, device, model.batch_keys)
+                   for b in split.iter_epoch(args.batch_size, shuffle=False))
     avg, running = MovingAverage(), {}
-    for batch in feeder.epoch(0):
+    for batch in batches:
         running = avg.update(common.host_scalars(model.eval_losses(ts, batch)))
     if running:
         writer.scalars({f"losses/{k}": v for k, v in running.items()}, step)

@@ -2,12 +2,14 @@
 
 * The port never loads JAX: importing its modules in a fresh interpreter
   leaves ``jax`` (and ``hemx``, ``flax``, ``optax``, ``msgpack``) out of
-  sys.modules, and no source file imports them.
+  sys.modules, and no source file imports them; nor PIL, which only a
+  non-PNG image would load.
 * ``python -m hemx_torch.cli ... --device cpu`` trains at a tiny size and
   reports ``step == epoch_size``; without ``--model`` it trains the CNN;
   ``--device cuda`` without a GPU fails; a model not ported yet exits 2.
-* Every flag the port shares with hemx has hemx.config's name and default,
-  and every ported model hemx's name and ``arguments()``.
+* Every flag the port shares with hemx has hemx.config's name and default
+  (the data flags included), and every ported model and dataset hemx's
+  name and ``arguments()``.
 """
 
 import json
@@ -53,8 +55,13 @@ def test_port_does_not_load_jax():
             "import hemx_torch.data.synthetic, hemx_torch.train.loop\n"
             "import hemx_torch.config, hemx_torch.ops.input_kernels\n"
             "import hemx_torch.train.checkpoint, hemx_torch.summaries.reader\n"
+            "import hemx_torch.data.plugin, hemx_torch.data.pipeline\n"
+            "import hemx_torch.data.tfrecord, hemx_torch.data.imageio\n"
+            "from hemx_torch.data.plugin import available_datasets\n"
+            "assert len(available_datasets()) == 5  # imports every plugin\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'hemx')]\n"
+            "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'hemx',\n"
+            "        'PIL')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     r = _run(["-c", code])
@@ -113,10 +120,10 @@ def test_cli_default_model_is_cnn(tmp_path):
 
 def test_shared_flags_match_hemx_defaults():
     from hemx.config import build_base_parser as hemx_parser
-    from hemx.data.synthetic import SyntheticDataset as HD
+    from hemx.data.plugin import get_dataset as hemx_dataset
     from hemx.models.plugin import get_model as hemx_model
     from hemx_torch.config import build_base_parser
-    from hemx_torch.data.synthetic import SyntheticDataset as TD
+    from hemx_torch.data.plugin import available_datasets, get_dataset
     from hemx_torch.models.plugin import available_models, get_model
 
     def defaults(parser):
@@ -129,10 +136,17 @@ def test_shared_flags_match_hemx_defaults():
     assert {"dir", "max_to_keep", "test_epochs", "summary_freq", "examples",
             "check_numerics", "summarize_activations", "summarize_gradients",
             "summarize_weights", "profile", "momentum", "decay",
-            "centered"} <= set(got)
+            "centered", "buffer_size", "resize", "grayscale", "cache_dir",
+            "raw_dataset_dir", "dataset_dir", "n_threads"} <= set(got)
     for dest in set(got) - {"device"}:
         assert got[dest] == want[dest], dest
-    pairs = [(HD, TD)]
+    pairs = []
+    for name in available_datasets():
+        assert get_dataset(name).name == hemx_dataset(name).name == name
+        pairs.append((hemx_dataset(name), get_dataset(name)))
+    assert {"--cifar_resize"} == set(get_dataset("cifar").arguments())
+    assert set(get_dataset("nyuv2").arguments()) == set(
+        hemx_dataset("nyuv2").arguments())
     for name in available_models():
         assert get_model(name).name == hemx_model(name).name == name
         pairs.append((hemx_model(name), get_model(name)))
@@ -143,3 +157,22 @@ def test_shared_flags_match_hemx_defaults():
         for flag, spec in port_cls.arguments().items():
             assert spec.get("default") == h_args[flag].get("default"), flag
             assert spec.get("type") == h_args[flag].get("type"), flag
+
+
+def test_nyuv2_resize_flag_wins(tmp_path):
+    """The base --resize parses for any dataset; nyuv2's own --resize
+    replaces it (conflict_handler="resolve"), as in hemx
+    (tests/test_data.py::TestResize::test_flag_parses_and_nyuv2_override_wins)."""
+    from hemx_torch.config import parse_args
+    a = parse_args(["--dataset", "synthetic", "--resize", "16", "16",
+                    "--dir", str(tmp_path)])
+    assert a.resize == [16, 16]
+    a = parse_args(["--dataset", "nyuv2", "--resize", "20", "24",
+                    "--random_crop", "8", "8", "--dir", str(tmp_path)])
+    assert a.resize == [20, 24] and a.random_crop == [8, 8]
+
+
+def test_cli_unported_dataset_exits_1(capsys):
+    from hemx_torch import cli
+    assert cli.main(["--dataset", "coco", "--device", "cpu"]) == 1
+    assert "ROADMAP, queue 1: celeb and coco" in capsys.readouterr().err

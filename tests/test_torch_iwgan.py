@@ -243,13 +243,21 @@ def test_adam_apply_matches_optax(setup):
 
 
 def test_unported_options_raise(setup, tmp_path):
-    """What the port still refuses: a split that is not kept on the device
-    needs the streaming host Pipeline (ROADMAP: the streaming Pipeline)."""
+    """What the port still refuses: the datasets whose codecs need PIL
+    (ROADMAP: celeb and coco). A split that is not kept on the device
+    streams through the host Pipeline."""
     from hemx_torch import cli
-    argv = ["--model", "iwgan", "--dataset", "synthetic", "--synthetic_u8",
+    from hemx_torch.data.pipeline import Pipeline
+    argv = ["--model", "iwgan", "--synthetic_u8",
             "--synthetic_count", "8", "--synthetic_shape", "16", "16", "3",
-            "--batch_size", "4", "--latent_size", "8", "--device", "cpu",
-            "--dir", str(tmp_path)]
-    for flags in (["--no-device_data_cache"], ["--device_cache_mb", "0"]):
-        with pytest.raises(NotImplementedError, match="streaming"):
-            cli.run(argv + flags)
+            "--batch_size", "4", "--latent_size", "8", "--n_disc_train", "1",
+            "--epochs", "1", "--device", "cpu"]
+    for name in ("celeb", "coco"):
+        with pytest.raises(cli.CliError, match="ROADMAP.*celeb and coco"):
+            cli.run(argv + ["--dataset", name, "--dir", str(tmp_path)])
+    for i, flags in enumerate((["--no-device_data_cache"],
+                               ["--device_cache_mb", "0"])):
+        res = cli.run(argv + ["--dataset", "synthetic", "--dir",
+                              str(tmp_path / str(i))] + flags)
+        assert isinstance(res["pipeline"], Pipeline)
+        assert res["train_state"].step == 2

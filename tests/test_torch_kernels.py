@@ -106,3 +106,41 @@ def test_kernel_matches_plain_on_cuda(cuda_device, shape, rows, lo, hi):
     want = K.gather_u8_normalize_ref(ds, idx, lo, hi)
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 6])
+def test_streaming_pipeline_matches_cache_on_cuda(cuda_device, group):
+    """On the card the streaming Pipeline (pinned staging, one H2D copy and
+    one kernel launch per group) yields the device cache's batches bit for
+    bit over two epochs, tails included; its copies are counted. Each
+    checked epoch's copies queue behind a ~1 s kernel, so a staging
+    buffer refilled before its copy has run shows as a wrong batch. A
+    warm-up epoch first fills the pinned and device caches: a device
+    allocation during the checked epoch would wait for the kernel and hide
+    the fault, as CUDA may for a small copy, so each copy is >= 96
+    KiB."""
+    from types import SimpleNamespace
+
+    from hemx_torch.data.pipeline import DeviceDataPipeline, Pipeline
+    from hemx_torch.data.synthetic import SyntheticDataset
+    args = SimpleNamespace(synthetic_count=80, synthetic_shape=[64, 64, 3],
+                           synthetic_eval_count=0, synthetic_u8=True, seed=0)
+    split = SyntheticDataset.get_datasets(args)["train"]
+    cached = DeviceDataPipeline(split, 8, device=cuda_device, seed=3,
+                                group=group)
+    stream = Pipeline(split, 8, device=cuda_device, seed=3, group=group)
+    for e in range(2):
+        want = list(cached.epoch(e))
+        list(stream.epoch(e))
+        torch.cuda.synchronize()
+        before = K.LAUNCHES["gather_u8_normalize"]
+        torch.cuda._sleep(2_000_000_000)  # cycles: the copies wait behind it
+        got = list(stream.epoch(e))
+        assert K.LAUNCHES["gather_u8_normalize"] - before == -(-10 // group)
+        assert len(got) == len(want) == 10
+        for g, w in zip(got, want):
+            assert g["image"].device == w["image"].device
+            assert torch.equal(g["image"], w["image"])
+    stream.drain()
+    assert stream.h2d_bytes == 4 * 80 * 64 * 64 * 3 and stream.h2d_s > 0
