@@ -72,14 +72,53 @@ prints its last line):
    materialization rate (images/s decoded and resized), each run's median
    call and images/s, and the H2D GB/s of the streamed copies.
 
+10. Card vs CPU for the thesis depth models at 65x65 (f32, ``--precision
+   highest``, batch 4): ``paper_cgan`` in each ``--model_version`` under
+   ``gan`` and ``mean_adjusted`` under ``wgan``, ``paper_standalone``
+   ``mean_provided``, ``paper_sampler`` at ``--noise_layer`` e2 and d3, and
+   ``sampler_gan --garch large --darch late --batch_norm_gen
+   --batch_norm_disc`` (batch 8, as its late critic runs BN on 1x1 maps,
+   ill-conditioned over 4 rows): one call from the same weights, batches
+   and seam noise on each device, every optimizer replaced by sgd 1e-3
+   as phase 7 steps (Adam's first step, lr * g / (|g| + 1e-8), turns a
+   2e-8 card-vs-CPU difference in a near-zero gradient into 4.9e-5 of
+   weight, over the atol), then ``predict``; losses rtol 5e-4 / atol
+   1e-5, gradient norms, params, BN stats and the Eigen scalars of the
+   prediction rtol 2e-3 / atol 2e-5; prints the tolerance each needed.
+   Adam and optax's rmsprop are held to optax by the CPU tests, and run
+   on the card in phase 11.
+11. The thesis slice at full width through ``hemx_torch.paper_train``
+   (scripts/thesis_runs.sh's COMMON: 4,096 / 512 synthetic 65x65x3 uint8
+   images, bs256, seed 7, its optimizer flags; one epoch = 16 calls):
+   (a) ``paper_cgan --model_version mean_adjusted`` in f32, then ``--epochs
+   +1`` (phase 6's checks, f32 conv products, the three moment files, the
+   ``metrics_y_hat|y_0|y_mean`` summaries, two input-kernel launches per
+   gathered group, the formula printed); (b) ``--training_version wgan``,
+   every parameter within +-0.01; (c) ``paper_standalone mean_provided``;
+   (d) ``paper_sampler --noise_layer e4-512``; (e) (a) in bf16 (every conv
+   and deconv product bf16 on the card); (f) ``paper_cgan`` on phase 9's
+   NYUv2 records, 65x65 random crops, bs64, 4 calls, streaming (float
+   images: no kernel); (g) each of the 14 runs thesis_runs.sh trains for
+   experiment1/1b/2 (paper_standalone and paper_cgan per version,
+   paper_sampler per site), 3 calls. Prints each run's median call,
+   images/s (a call counts one batch) and the moments' host seconds.
+
+Phase 2 also times the kernel on the thesis set's rows (512 of 65x65x3 and
+of 65x65x1, 12,675 and 4,225 bytes, not 16-byte aligned), by CUDA events
+and by the device time torch.profiler records (these gathers are short
+enough that an event pair around one launch mostly times the host's
+launch latency).
+
 The line before the last is a JSON list of the kernels with their launch
-counts from phases 4, 6, 8 and 9 (each path's counts set to 0 just before
-it and read just after), their phase-2 errors and times, and their bound;
-the last line is ``{"ok": true, "device": {...}}``.
+counts summed over phases 4, 6, 8, 9 and 11 (each path's counts set to 0
+just before it and read just after; by phase under ``launches_by_phase``),
+their phase-2 errors and times, and their bound; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -176,6 +215,25 @@ def _median_ms(torch, fns: dict, n: int = 25, warmup: int = 3) -> dict:
             for k, v in events.items()}
 
 
+def _device_ms(torch, fn, n: int = 20) -> float:
+    """Device time per call of ``fn``: the summed duration of the CUDA
+    kernels ``n`` calls launch, from ``torch.profiler``, over ``n``. Unlike
+    a CUDA-event pair around one call, it leaves out the host's launch
+    latency, which an idle device waits through."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler recorded no device time")
+    return us / n / 1e3
+
+
 def phase_kernel(torch, dev) -> dict:
     from hemx_torch.ops import input_kernels as K
     g = torch.Generator(device=dev)
@@ -207,6 +265,44 @@ def phase_kernel(torch, dev) -> dict:
               flush=True)
         check(err <= 1e-6, f"kernel disagrees with plain version: {err}")
         max_err = max(max_err, err)
+    thesis = []
+    for c in (3, 1):  # the thesis set's image and depth: 65x65 rows
+        d65 = torch.randint(0, 256, (4096, 65, 65, c), dtype=torch.uint8,
+                            device=dev, generator=g)
+        i65 = torch.randperm(4096, device=dev, generator=g)[:512]
+        a = K.gather_u8_normalize(d65, i65, 0.0, 1.0)
+        b = K.gather_u8_normalize_ref(d65, i65, 0.0, 1.0)
+        torch.cuda.synchronize()
+        check(a.shape == (512, c, 65, 65)
+              and a.is_contiguous(memory_format=torch.channels_last),
+              f"kernel output {tuple(a.shape)} on 65x65x{c} rows")
+        err = (a - b).abs().max().item()
+        check(err <= 1e-6, f"kernel disagrees on 65x65x{c} rows: {err}")
+        max_err = max(max_err, err)
+        t = _median_ms(torch, {
+            "kernel": lambda: K.gather_u8_normalize(d65, i65, 0.0, 1.0),
+            "plain": lambda: K.gather_u8_normalize_ref(d65, i65, 0.0, 1.0)})
+        d = {"kernel": _device_ms(
+                 torch, lambda: K.gather_u8_normalize(d65, i65, 0.0, 1.0)),
+             "plain": _device_ms(
+                 torch, lambda: K.gather_u8_normalize_ref(d65, i65, 0.0, 1.0))}
+        row = 65 * 65 * c
+        moved = 512 * (row * 5 + i65.element_size())
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        thesis.append({"rows": f"512x65x65x{c}", "row_bytes": row,
+                       "max_abs_err": err, "ms": t["kernel"],
+                       "plain_ms": t["plain"], "device_ms": d["kernel"],
+                       "plain_device_ms": d["plain"], "bound_ms": bound})
+        print(f"gather_u8_normalize 512x65x65x{c} ({row} B rows, not "
+              f"16-byte aligned): max abs diff {err:.3g}; kernel "
+              f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms (median of "
+              f"25 CUDA-event timed launches, launch latency included); "
+              f"device time (torch.profiler, 20 calls) kernel "
+              f"{d['kernel']:.4f} ms, plain {d['plain']:.4f} ms; bound "
+              f"{bound:.4f} ms ({moved / 1e6:.2f} MB at 3.35 TB/s), kernel "
+              f"at {100 * bound / t['kernel']:.0f} % of it by events, "
+              f"{100 * bound / d['kernel']:.0f} % by device time",
+              flush=True)
     ms = _median_ms(torch, {
         "kernel": lambda: K.gather_u8_normalize(ds, idx, 0.0, 1.0),
         "plain": lambda: K.gather_u8_normalize_ref(ds, idx, 0.0, 1.0)})
@@ -222,7 +318,7 @@ def phase_kernel(torch, dev) -> dict:
           f"call computes gather + convert + scale", flush=True)
     return {"max_abs_err": max_err, "ms": ms["kernel"],
             "plain_ms": ms["plain"], "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None}
+            "bound_by": "bytes", "library_ms": None, "thesis_rows": thesis}
 
 
 def _close(a, b, rtol, atol, what):
@@ -495,27 +591,33 @@ def _trees_equal(a: dict, b: dict) -> bool:
 
 def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
                    group: int, count: int, eval_count: int,
-                   batch: int) -> dict:
-    """``cli.run(argv)`` for one epoch of ``calls`` calls with
-    ``--max_to_keep 2``, then ``--epochs +1`` on the same ``--dir``, with
-    the input kernel's counts set to 0 just before and read just after.
-    Checks checkpoints 0 and 1 after the first run; the second resumes at
-    step ``calls`` from checkpoint 1 (restore bit-exact) and ends at step
-    ``2 * calls`` with checkpoints {1, 2}; every loss finite in the history
-    and in the train and validate events at the expected steps; every conv
-    product (a conv's output, or the input of its BN) on the card in bf16;
-    the launch count. Returns
-    both runs' results and the launches."""
+                   batch: int, *, run=None, dtype: str = "bfloat16",
+                   keys: int = 1, eval_tags=None) -> dict:
+    """``run(argv)`` (default ``cli.run``) for one epoch of ``calls`` calls
+    with ``--max_to_keep 2``, then ``--epochs +1`` on the same ``--dir``,
+    with the input kernel's counts set to 0 just before and read just
+    after. Checks checkpoints 0 and 1 after the first run; the second
+    resumes at step ``calls`` from checkpoint 1 (restore bit-exact) and ends
+    at step ``2 * calls`` with checkpoints {1, 2}; every loss finite in the
+    history and in the train and validate events at the expected steps
+    (validation writes ``eval_tags``, default the train losses but
+    ``grad_norm``); in ``dtype`` on the card: every conv and deconv product
+    (and with it each layer without BN's output) and every BN input; the
+    launch count, one per ``keys`` uint8 keys. Returns both runs' results
+    and the launches."""
     from hemx_torch import cli, convert
     from hemx_torch.models.plugin import get_model
     from hemx_torch.ops import input_kernels as K
+    from hemx_torch.ops import layers
     from hemx_torch.ops.layers import BatchNorm, Conv2d
     from hemx_torch.summaries.reader import get_all_events, get_tag_values
     from hemx_torch.train.checkpoint import CheckpointManager
 
-    argv = argv + ["--dtype", "bfloat16", "--epoch_size", str(calls),
+    run = run or cli.run
+    argv = argv + ["--dtype", dtype, "--epoch_size", str(calls),
                    "--max_to_keep", "2"]
-    seen = {"conv2d output": set(), "batch_norm input": set()}
+    seen = {"conv2d output": set(), "conv/deconv product": set(),
+            "batch_norm input": set()}
 
     def post(m, inp, out):
         # a conv with BN outputs f32 by hemx's policy (BN's f32 beta); its
@@ -528,21 +630,34 @@ def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
         if isinstance(m, BatchNorm) and inp[0].device.type == dev.type:
             seen["batch_norm input"].add(inp[0].dtype)
 
+    def recording(op):
+        def wrapped(*a, **kw):
+            y = op(*a, **kw)
+            if y.device.type == dev.type:
+                seen["conv/deconv product"].add(y.dtype)
+            return y
+        return wrapped
+
+    ops = {n: getattr(layers, n) for n in ("conv2d_op", "deconv2d_op")}
+    for n, op in ops.items():
+        setattr(layers, n, recording(op))
     hooks = [torch.nn.modules.module.register_module_forward_hook(post),
              torch.nn.modules.module.register_module_forward_pre_hook(pre)]
     K.reset_launches()
     try:
-        res1 = cli.run(argv + ["--epochs", "1"])
+        res1 = run(argv + ["--epochs", "1"])
         manager = CheckpointManager(workdir)
         check([e for e, _ in manager.checkpoints()] == [0, 1],
               f"after the first run: checkpoints {manager.checkpoints()}")
         ckpt1 = manager.restore(manager.checkpoints()[-1][1])
         check(_trees_equal(ckpt1, convert.to_checkpoint(res1["train_state"], 1)),
               "checkpoint-1 differs from the first run's final state")
-        res2 = cli.run(argv + ["--epochs", "+1"])
+        res2 = run(argv + ["--epochs", "+1"])
     finally:
         for h in hooks:
             h.remove()
+        for n, op in ops.items():
+            setattr(layers, n, op)
     launches = K.LAUNCHES["gather_u8_normalize"]
     args = res2["args"]
     ts = res2["train_state"]
@@ -568,7 +683,7 @@ def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
         f"{args.model}: calls {len(hist)}, non-finite loss in {hist}")
     want = {"train": (expected_summary_steps(calls, 0, 2, 0), losses),
             "validate": ({calls, 2 * calls},
-                         [k for k in losses if k != "grad_norm"])}
+                         eval_tags or [k for k in losses if k != "grad_norm"])}
     for phase, (steps, tags) in want.items():
         events = get_all_events(os.path.join(workdir, phase))
         for tag in tags:
@@ -579,10 +694,17 @@ def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
             check(all(math.isfinite(v) for _, v in got),
                   f"{args.model} {phase} losses/{tag} not finite: {got}")
     has_bn = any(isinstance(m, BatchNorm) for m in ts.nets.modules())
-    check(seen == {"conv2d output": {torch.bfloat16},
-                   "batch_norm input": {torch.bfloat16} if has_bn else set()},
-          f"{args.model}: compute dtypes on the card: {seen}")
-    want_launches = 2 * run_launches(count, eval_count, batch, calls, group)
+    want_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    want_seen = {"conv2d output": ({want_dtype} if any(
+                     isinstance(m, Conv2d) for m in ts.nets.modules())
+                     else set()),
+                 "conv/deconv product": {want_dtype},
+                 "batch_norm input": {want_dtype} if has_bn else set()}
+    check(seen == want_seen,
+          f"{args.model}: compute dtypes on the card: {seen}, expected "
+          f"{want_seen}")
+    want_launches = 2 * keys * run_launches(count, eval_count, batch, calls,
+                                            group)
     check(launches == want_launches,
           f"{args.model}: input kernel launched {launches} times, expected "
           f"{want_launches}")
@@ -953,6 +1075,293 @@ def phase_data(torch, dev, card: str, workdir: str, *, size: int = 128,
     return launches
 
 
+# phase 10: (model, batch, flags) run on the card and on the CPU
+DEPTH_CARD_VS_CPU = (
+    [("paper_cgan", 4, ["--model_version", v, "--training_version", "gan"])
+     for v in ("baseline", "mean_adjusted", "mean_provided",
+               "mean_provided2")]
+    + [("paper_cgan", 4, ["--model_version", "mean_adjusted",
+                          "--training_version", "wgan"]),
+       ("paper_standalone", 4, ["--model_version", "mean_provided"]),
+       ("paper_sampler", 4, ["--noise_layer", "e2"]),
+       ("paper_sampler", 4, ["--noise_layer", "d3"]),
+       # batch 8: the late critic's BN acts on 1x1 maps, ill-conditioned over
+       # 4 rows (its gradient norm moves by 4e-3 between two float32 sums)
+       ("sampler_gan", 8, ["--garch", "large", "--darch", "late",
+                           "--batch_norm_gen", "--batch_norm_disc"])])
+
+
+def _depth_call_each(torch, dev, model_name: str, batch: int, flags) -> dict:
+    """One train call of a depth model from the same weights, batches and
+    seam noise on the CPU and on ``dev``, then ``predict`` on the first
+    batch: {device: (metrics, (params, mstate), batches, Eigen scalars of
+    the prediction or None)}."""
+    from hemx_torch import convert
+    from hemx_torch.config import parse_args
+    from hemx_torch.data.pipeline import DeviceDataPipeline
+    from hemx_torch.data.synthetic import SyntheticDataset
+    from hemx_torch.metrics.eigen import eigen_metrics
+    from hemx_torch.models.conditional import draw_noise
+    from hemx_torch.models.plugin import get_model
+    from hemx_torch.ops.layers import set_precision
+    from hemx_torch.train.optimizers import Optimizer, make_transform
+
+    args = parse_args(["--model", model_name, "--dataset", "synthetic",
+                       "--synthetic_u8", "--synthetic_count", "64",
+                       "--synthetic_shape", "65", "65", "3", "--batch_size",
+                       str(batch), "--precision", "highest", "--seed", "0"]
+                      + flags)
+    set_precision(args.precision)
+    split = SyntheticDataset.get_datasets(args)["train"]
+    cls = get_model(model_name)
+    out, noise = {}, None
+    for d in ("cpu", dev):
+        model = cls(args, d)
+        ts = model.init_state((3, 65, 65), args.seed)
+        n = model.batches_per_train_call()
+        pipe = DeviceDataPipeline(split, batch, device=d,
+                                  keys=("image", "depth"), seed=0, group=n)
+        batches = list(pipe.epoch(0))[:n]
+        gan = isinstance(ts.nets, torch.nn.ModuleDict)
+        if gan and noise is None:  # drawn once, on the CPU
+            g = torch.Generator()
+            g.manual_seed(1)
+            G = ts.nets["generator"]
+            noise = [draw_noise(G, g, b["image"]) for b in batches]
+            pred_noise = draw_noise(G, g, batches[0]["image"])
+        # sgd in place of the model's Adam / rmsprop, as phase 7 steps: a
+        # parameter's card-vs-CPU difference is then lr times its
+        # gradient's; Adam's first step, lr * g / (|g| + 1e-8), would turn
+        # a 2e-8 difference in a near-zero gradient into 4.9e-5 of weight
+        sgd = make_transform(argparse.Namespace(optimizer="sgd", lr=1e-3))
+        ts.opt = ({k: Optimizer(o.module, sgd) for k, o in ts.opt.items()}
+                  if gan else Optimizer(ts.opt.module, sgd))
+        ts, metrics = model.train(ts, iter(batches),
+                                  **({"noise": noise} if gan else {}))
+        pred, prep = model.predict(ts, batches[0],
+                                   **({"noise": pred_noise} if gan else {}))
+        eig = None
+        if model.depth_range() == (0.0, 10.0):  # meters: Eigen on /10
+            eig = {k: float(v) for k, v in eigen_metrics(
+                (prep["y"] / 10.0).clamp(min=1e-3).cpu(),
+                (pred / 10.0).clamp(min=1e-3).cpu()).items()}
+        out[str(d)] = ({k: float(v) for k, v in metrics.items()},
+                       convert.to_jax(ts.nets),
+                       [torch.cat([b["image"], b["depth"]], 1).cpu()
+                        for b in batches], eig)
+    return out
+
+
+def phase_depth_card_vs_cpu(torch, dev) -> None:
+    """Phase 7's check for the depth models at 65x65 (f32, highest, each
+    optimizer replaced by sgd 1e-3): losses rtol 5e-4 / atol 1e-5;
+    gradient norms, params, BN stats and the Eigen scalars of the
+    prediction rtol 2e-3 / atol 2e-5."""
+    for name, batch, flags in DEPTH_CARD_VS_CPU:
+        out = _depth_call_each(torch, dev, name, batch, flags)
+        (m_gpu, _, b_gpu, e_gpu), (m_cpu, _, b_cpu, e_cpu) = (out[str(dev)],
+                                                              out["cpu"])
+        label = f"{name} {' '.join(flags)}"
+        for a, b in zip(b_gpu, b_cpu):
+            check(torch.equal(a, b), f"{label}: cuda and cpu batches differ")
+        check(set(m_gpu) == set(m_cpu), f"{label}: metrics {m_gpu} vs {m_cpu}")
+        need = {}
+        for k in m_cpu:
+            rtol, atol = ((2e-3, 2e-5) if k.endswith("grad_norm")
+                          else (5e-4, 1e-5))
+            _close(m_gpu[k], m_cpu[k], rtol, atol, f"{label} {k}")
+            need[k] = abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+        worst_abs, worst_excess = _compare_trees(out, dev, 2e-3, 2e-5)
+        eig_need = 0.0
+        if e_cpu is not None:
+            for k in e_cpu:
+                _close(e_gpu[k], e_cpu[k], 2e-3, 2e-5, f"{label} eigen {k}")
+                eig_need = max(eig_need, abs(e_gpu[k] - e_cpu[k])
+                               / max(abs(e_cpu[k]), 1e-30))
+        print(f"card vs cpu, {label} (65x65, batch {batch}, highest): "
+              f"relative difference of each metric (the rtol it needed) "
+              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(need.items()))
+              + f"; params and BN stats max |cuda-cpu| {worst_abs:.3g}, "
+              f"atol needed at rtol 2e-3 {max(worst_excess, 0.0):.3g}"
+              + (f"; Eigen scalars rtol needed {eig_need:.3g}"
+                 if e_cpu is not None else ""), flush=True)
+
+
+# thesis_runs.sh's optimizer flags
+GAN_OPT = ["--optimizer", "adam", "--g_lr", "1e-4", "--d_lr", "1e-4",
+           "--g_beta1", "0.5", "--g_beta2", "0.999", "--d_beta1", "0.5",
+           "--d_beta2", "0.999"]
+STANDALONE_OPT = ["--optimizer", "adam", "--g_lr", "1e-4", "--g_beta1",
+                  "0.5", "--g_beta2", "0.999"]
+
+
+def _thesis_line(label: str, card: str, res: dict, batch: int,
+                 launches: int, want: int) -> None:
+    s = res["summary"]
+    print(f"{label} on {card}: {s['calls']} calls, first call "
+          f"{s['first_call_s']:.4f} s, median call {s['median_call_s']:.4f} s, "
+          f"{s['images_per_s']:.1f} images/s (a call counts one batch of "
+          f"{batch}); moments {res['moments_s']:.3f} s on the host; "
+          f"{launches} input-kernel launches (expected {want})", flush=True)
+
+
+def phase_thesis(torch, dev, card: str, workdir: str, nyu_raw: str,
+                 store: str, *, count: int = 4096, eval_count: int = 512,
+                 batch: int = 256, nyu_batch: int = 64) -> dict:
+    """The slice at full width through ``python -m hemx_torch.paper_train``
+    (``paper_train.run``), thesis_runs.sh's COMMON: 4,096 / 512 synthetic
+    65x65x3 uint8 images, bs256, seed 7, one epoch (16 calls) per run.
+    Returns the input kernel's launches of each run."""
+    from hemx_torch import paper_train
+    from hemx_torch.ops import input_kernels as K
+    from hemx_torch.summaries.reader import get_all_events
+
+    THESIS = ["--dataset", "synthetic", "--synthetic_count", str(count),
+              "--synthetic_eval_count", str(eval_count), "--synthetic_shape",
+              "65", "65", "3", "--synthetic_u8", "--batch_size", str(batch),
+              "--max_to_keep", "1", "--seed", "7"]
+    calls = count // batch
+    launches = {}
+    # (a) paper_cgan mean_adjusted, f32: an epoch, then +1 on the same dir;
+    # per call one 2-batch gather of each uint8 key (image, depth), plus
+    # the summary batch and each validation batch, each key
+    d = os.path.join(workdir, "cgan")
+    argv = ["--model", "paper_cgan", "--model_version", "mean_adjusted",
+            *THESIS, *GAN_OPT, "--device", str(dev), "--dir", d]
+    out = run_and_resume(torch, dev, d, argv, calls, 2, count, eval_count,
+                         batch, run=paper_train.run, dtype="float32", keys=2,
+                         eval_tags=["g_loss", "d_loss", "rmse"])
+    launches["cgan_f32_run_and_resume"] = out["launches"]
+    per_run = run_launches(count, eval_count, batch, calls, 2)
+    want = 2 * 2 * per_run
+    print(f"launch formula (a): 2 runs x 2 uint8 keys x (expected_launches("
+          f"{count // batch} batches per data epoch, group 2, {calls} calls x "
+          f"2 batches) + 1 summary batch + {eval_count} / {batch} validation "
+          f"batches) = 2 x 2 x {per_run} = {want}", flush=True)
+    tags = set(get_all_events(os.path.join(d, "train")))
+    for prefix in ("metrics_y_hat/", "metrics_y_0/", "metrics_y_mean/"):
+        check(any(t.startswith(prefix) for t in tags),
+              f"paper_cgan: no {prefix}* summaries")
+    for f in ("mean_image.png", "var_image.png", "mean_image.npy"):
+        check(os.path.exists(os.path.join(d, f)), f"paper_cgan: no {f}")
+    for r in (out["res1"], out["res2"]):
+        _thesis_line(f"paper_cgan mean_adjusted f32 bs{batch} (run and "
+                     f"resume)", card, r, batch, out["launches"], want)
+
+    def one_epoch(label, name, argv, group, check_fn=None):
+        K.reset_launches()
+        res = paper_train.run(argv + ["--epochs", "1", "--device", str(dev),
+                                      "--dir", os.path.join(workdir, name)])
+        n = K.LAUNCHES["gather_u8_normalize"]
+        want = 2 * run_launches(count, eval_count, batch, calls, group)
+        check(res["train_state"].step == calls,
+              f"{label}: step {res['train_state'].step}")
+        check(all(math.isfinite(v) for h in res["history"] for v in h.values()),
+              f"{label}: non-finite loss")
+        check(n == want, f"{label}: input kernel launched {n}, expected {want}")
+        if check_fn:
+            check_fn(res)
+        _thesis_line(label, card, res, batch, n, want)
+        launches[name] = n
+
+    def clipped(res):
+        worst = max(p.abs().max().item()
+                    for p in res["train_state"].nets.parameters())
+        check(worst <= 0.01 + 1e-7, f"paper_cgan wgan: a parameter at {worst}")
+        print(f"paper_cgan wgan: every parameter within +-0.01 (largest "
+              f"|p| {worst:.6g})", flush=True)
+
+    # (b)-(d) one epoch each
+    one_epoch(f"paper_cgan wgan f32 bs{batch} (5+1)", "cgan_wgan",
+              ["--model", "paper_cgan", "--training_version", "wgan",
+               *THESIS, *GAN_OPT], 6, clipped)
+    one_epoch(f"paper_standalone mean_provided f32 bs{batch}", "standalone",
+              ["--model", "paper_standalone", "--model_version",
+               "mean_provided", *THESIS, *STANDALONE_OPT], 1)
+    one_epoch(f"paper_sampler e4-512 f32 bs{batch}", "sampler_e4_512",
+              ["--model", "paper_sampler", "--noise_layer", "e4-512",
+               *THESIS, *GAN_OPT], 2)
+    # (e) (a) in bf16: every conv and deconv product on the card in bf16
+    d = os.path.join(workdir, "cgan_bf16")
+    argv = ["--model", "paper_cgan", "--model_version", "mean_adjusted",
+            *THESIS, *GAN_OPT, "--device", str(dev), "--dir", d]
+    out = run_and_resume(torch, dev, d, argv, calls, 2, count, eval_count,
+                         batch, run=paper_train.run, dtype="bfloat16", keys=2,
+                         eval_tags=["g_loss", "d_loss", "rmse"])
+    launches["cgan_bf16_run_and_resume"] = out["launches"]
+    for r in (out["res1"], out["res2"]):
+        _thesis_line(f"paper_cgan mean_adjusted bf16 bs{batch} (run and "
+                     f"resume)", card, r, batch, out["launches"], want)
+    # (f) the thesis's own input: NYUv2-format records, 65x65 random crops,
+    # streamed (float images: no input kernel)
+    K.reset_launches()
+    res = paper_train.run(
+        ["--model", "paper_cgan", "--dataset", "nyuv2", "--raw_dataset_dir",
+         nyu_raw, "--dataset_dir", store, "--random_crop", "65", "65",
+         "--batch_size", str(nyu_batch), *GAN_OPT, "--epochs", "1", "--epoch_size",
+         "4", "--seed", "7", "--device", str(dev), "--dir",
+         os.path.join(workdir, "nyu_cgan")])
+    n = K.LAUNCHES["gather_u8_normalize"]
+    check(res["train_state"].step == 4 and n == 0
+          and all(math.isfinite(v) for h in res["history"]
+                  for v in h.values()),
+          f"paper_cgan on NYUv2: step {res['train_state'].step}, launches "
+          f"{n}, history {res['history']}")
+    check(os.path.exists(os.path.join(workdir, "nyu_cgan", "mean_image.npy")),
+          "paper_cgan on NYUv2: no moments")
+    _thesis_line(f"paper_cgan on NYUv2 65x65 crops, bs{nyu_batch}, "
+                 f"streaming", card, res, nyu_batch, n, 0)
+    launches["cgan_nyuv2_streaming"] = n
+    thesis_rows(torch, dev, card, THESIS)
+    return launches
+
+
+def thesis_rows(torch, dev, card: str, common: list, calls: int = 3) -> None:
+    """Every run ``scripts/thesis_runs.sh`` trains for experiment1/1b/2
+    (``paper_standalone`` and ``paper_cgan`` per model version, and
+    ``paper_sampler`` per noise site; 14 runs) takes ``calls`` train calls
+    at full width on the card from one device-resident split: finite
+    metrics, the step count, and the last call's time."""
+    from hemx_torch.config import parse_args
+    from hemx_torch.data.pipeline import DeviceDataPipeline
+    from hemx_torch.data.synthetic import SyntheticDataset
+    from hemx_torch.models.plugin import get_model
+    from hemx_torch.train.loop import _continuous_stream
+
+    rows = []
+    for v in ("baseline", "mean_adjusted", "mean_provided"):
+        rows += [["--model", "paper_standalone", "--model_version", v,
+                  *STANDALONE_OPT],
+                 ["--model", "paper_cgan", "--model_version", v, *GAN_OPT]]
+    rows += [["--model", "paper_sampler", "--noise_layer", site, *GAN_OPT]
+             for site in ("x", "e1", "e2", "e3", "e4-512", "d2", "d3", "d4")]
+    split = None
+    times = []
+    for argv in rows:
+        args = parse_args(argv + common + ["--device", str(dev)])
+        if split is None:
+            split = SyntheticDataset.get_datasets(args)["train"]
+        model = get_model(args.model)(args, dev)
+        ts = model.init_state((3, 65, 65), args.seed)
+        stream = _continuous_stream(DeviceDataPipeline(
+            split, args.batch_size, device=dev, keys=model.batch_keys,
+            seed=args.seed, group=model.batches_per_train_call()))
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            ts, metrics = model.train(ts, stream)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+        label = " ".join(argv[1:4])
+        check(ts.step == calls and all(
+            math.isfinite(float(m)) for m in metrics.values()),
+            f"{label}: step {ts.step}, metrics {metrics}")
+        times.append(f"{label} {seconds * 1e3:.1f} ms")
+    print(f"the {len(rows)} thesis_runs.sh runs, {calls} calls each at bs"
+          f"{args.batch_size} on {card}, all finite; last call: "
+          + "; ".join(times), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -991,20 +1400,28 @@ def main() -> int:
         launches_zoo = phase_zoo_bf16_runs(torch, dev, card,
                                            os.path.join(workdir, "zoo"))
         print("== phase 9: the data layer at full width", flush=True)
-        launches_data = phase_data(torch, dev, card,
-                                   os.path.join(workdir, "data"))
+        data_dir = os.path.join(workdir, "data")
+        launches_data = phase_data(torch, dev, card, data_dir)
+        print("== phase 10: card vs cpu, the depth models at 65x65",
+              flush=True)
+        phase_depth_card_vs_cpu(torch, dev)
+        print("== phase 11: the thesis slice at full width through "
+              "hemx_torch.paper_train", flush=True)
+        launches_thesis = phase_thesis(
+            torch, dev, card, os.path.join(workdir, "thesis"),
+            os.path.join(data_dir, "nyu_raw"), os.path.join(data_dir, "store"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    by_phase = {"phase4_iwgan_f32": launches, "phase6_iwgan_bf16": launches_bf16,
+                **{f"phase8_{k}_bf16": v for k, v in launches_zoo.items()},
+                **{f"phase9_{k}": v for k, v in launches_data.items()},
+                **{f"phase11_{k}": v for k, v in launches_thesis.items()}}
     print(json.dumps({"kernels": [{
         "name": "gather_u8_normalize", "route": "triton",
         "source": "hemx_torch/ops/input_kernels.py",
         "replaces": "hemx/ops/pallas_kernels.py:75",
-        "launches": launches, "launches_bf16_run": launches_bf16,
-        "launches_by_model_bf16_run": launches_zoo,
-        "launches_floorplan_cached": launches_data["cached"],
-        "launches_streaming": launches_data["streaming"],
-        "launches_nyuv2_streaming": launches_data["nyuv2"], **kern}]}),
-        flush=True)
+        "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
+        **kern}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

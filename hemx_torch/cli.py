@@ -5,7 +5,11 @@
     python -m hemx_torch.cli ... --dir workspace/iwgan --epochs +1   # resume
 
 ``--model`` is one of ``cnn`` (the default, as in ``train.py``), ``vae``,
-``gan``, ``wgan`` and ``iwgan``; ``--dataset`` one of ``floorplan`` (the
+``gan``, ``wgan``, ``iwgan`` and the thesis depth models (``paper_cgan``,
+``paper_sampler``, ``paper_noise``, ``paper_baseline_sampler``,
+``paper_standalone``, ``paper_baseline_standalone``, ``sampler_gan``;
+``python -m hemx_torch.paper_train`` adds their dataset depth moments);
+``--dataset`` one of ``floorplan`` (the
 default), ``mnist``, ``cifar``, ``nyuv2`` and ``synthetic``. A dataset
 whose records are not in ``--dataset_dir`` is converted from its raw files
 in ``--raw_dataset_dir`` first:
@@ -35,15 +39,15 @@ class CliError(Exception):
         self.code = code
 
 
-def run(argv=None) -> dict:
-    """Parse, build and train; returns the loop's result plus "args" and
-    "summary"."""
+def build(argv=None):
+    """Parse the flags and build what a run trains: ``(args, device, model,
+    splits)``. Checks the device, then the model (exit code 2 when it is
+    unknown), then the dataset, before any data is loaded."""
     from hemx_torch.config import parse_args
     from hemx_torch.data.plugin import (get_dataset, get_dataset_tensors,
                                         unknown_dataset_message)
     from hemx_torch.models.plugin import available_models, get_model
     from hemx_torch.ops.layers import set_precision
-    from hemx_torch.train import loop
 
     args = parse_args(argv)
     device = torch.device(args.device)
@@ -58,7 +62,14 @@ def run(argv=None) -> dict:
         raise CliError(unknown_dataset_message(args.dataset))
     set_precision(args.precision)
     model = model_cls(args, device)
-    splits = get_dataset_tensors(args)
+    return args, device, model, get_dataset_tensors(args)
+
+
+def train(args, device, model, splits) -> dict:
+    """Train through ``hemx_torch.train.loop``; returns the loop's result
+    plus "args" and "summary" (also printed as the last line)."""
+    from hemx_torch.train import loop
+
     result = loop.train(model, splits, args, device)
     result["args"] = args
     result["summary"] = loop.summarize(result, args.batch_size, device)
@@ -66,7 +77,14 @@ def run(argv=None) -> dict:
     return result
 
 
-def main(argv=None) -> int:
+def run(argv=None) -> dict:
+    """Parse, build and train (:func:`build`, then :func:`train`)."""
+    return train(*build(argv))
+
+
+def main(argv=None, run=run) -> int:
+    """Exit code of ``run(argv)``: 0, 255 on a non-finite gradient, 2 for
+    an unknown model, 1 for other refusals."""
     try:
         run(argv)
     except FloatingPointError as e:

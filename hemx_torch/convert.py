@@ -8,7 +8,9 @@ layout change for kernels:
 * conv ``w``: HWIO -> OIHW, ``permute(3, 2, 0, 1)``;
 * deconv ``w``: ``[H, W, out, in]`` -> torch's ``(in, out, H, W)``, the same
   permute (no flip);
-* dense ``w``: ``[in, out]`` -> ``(out, in)``, a transpose.
+* dense ``w``: ``[in, out]`` -> ``(out, in)``, a transpose;
+* a depth net's flat ``{name}_w`` (``hemx_torch.models.depth_nets``, the
+  names in its ``kernels``): a conv or deconv kernel, the same permute.
 
 Trees built from modules keep hemx's empty subtrees: a layer with no
 parameters (``flatten``, ``unflatten``) or no BN state is ``{}``, in the
@@ -18,7 +20,8 @@ hemx's pytrees and so in its checkpoints.
 The whole train state crosses as hemx's checkpoint tree (the flax state
 dict of ``{"train_state": {params, mstate, opt, step, rng}, "epoch"}``):
 ``opt`` is the optax state of the model's one optimizer (CNN, VAE), or a
-dict of them (the GANs' ``{"g", "d"}``), under optax's names
+dict of them (the GANs' and the conditional GANs' ``{"g", "d"}``; the
+standalone depth models keep one), under optax's names
 (``hemx_torch.train.optimizers``), ``step`` is a 0-d int32 array, ``rng``
 the uint32[2] key, ``epoch`` an int64 (0-d array or numpy scalar).
 Loading checks that the tree
@@ -57,9 +60,11 @@ def flatten_tree(tree: dict, prefix: tuple = ()) -> dict:
 
 
 def _layout(net: nn.Module, path: tuple, t: torch.Tensor, table) -> torch.Tensor:
+    owner = net.get_submodule(".".join(path[:-1]))
+    if path[-1] in getattr(owner, "kernels", ()):  # a depth net's flat name
+        return table[Conv2d](t)
     if path[-1] != "w":
         return t
-    owner = net.get_submodule(".".join(path[:-1]))
     return table[type(owner)](t)
 
 

@@ -3,8 +3,8 @@
 A numpy copy of ``hemx``'s ``_make_images`` and of its uint8 rounding,
 pinned equal to the original by ``tests/test_torch_data.py``. The train,
 validate and test splits are seeded ``seed``, ``seed + 1`` and ``seed + 2``
-as in ``hemx``; only the ``image`` key is built (the ported models read
-nothing else). Registered as the ``synthetic`` dataset plugin; nothing is
+as in ``hemx``, with hemx's keys: ``image``, ``depth``, ``x_loc``,
+``y_loc`` and ``mean``. Registered as the ``synthetic`` dataset plugin; nothing is
 converted or downloaded.
 """
 
@@ -68,8 +68,8 @@ class SyntheticDataset(DataPlugin):
                      "--synthetic_count)."),
             "--synthetic_u8": dict(
                 action="store_true", default=False,
-                help="Store images as uint8 and normalize on the device "
-                     "(the real-dataset path); float32 otherwise."),
+                help="Store image and depth as uint8 and normalize on the "
+                     "device (the real-dataset path); float32 otherwise."),
         }
 
     @staticmethod
@@ -90,18 +90,32 @@ class SyntheticDataset(DataPlugin):
 
     @classmethod
     def get_datasets(cls, args) -> dict:
-        """{"train", "validate", "test": Split} with the ``image`` key, each
-        equal to ``hemx``'s split of the same name."""
+        """{"train", "validate", "test": Split}, each equal to ``hemx``'s
+        split of the same name: ``image``, ``depth`` (the image's channel
+        mean ×0.9 + 0.05), ``x_loc`` / ``y_loc`` (each pixel's column / row
+        on [0, 1]) and ``mean`` (the per-image mean depth, from the float
+        depth), the last three float32 broadcast views. ``--synthetic_u8``
+        rounds ``image`` and ``depth`` to uint8, which :class:`U8Normalize`
+        turns back on the device."""
         h, w, c = args.synthetic_shape
         n_eval = getattr(args, "synthetic_eval_count", 0) or args.synthetic_count
+        ys = np.linspace(0.0, 1.0, h, dtype=np.float32)
+        xs = np.linspace(0.0, 1.0, w, dtype=np.float32)
         splits = {}
         for i, name in enumerate(("train", "validate", "test")):
             n = args.synthetic_count if name == "train" else n_eval
             images = _make_images(n, h, w, c, seed=args.seed + i)
+            depth = images.mean(axis=3, keepdims=True) * 0.9 + 0.05
+            arrays = {
+                "x_loc": np.broadcast_to(xs[None, None, :, None], (n, h, w, 1)),
+                "y_loc": np.broadcast_to(ys[None, :, None, None], (n, h, w, 1)),
+                "mean": np.broadcast_to(
+                    depth.mean(axis=(1, 2, 3), keepdims=True), depth.shape)}
             dt = None
             if args.synthetic_u8:
-                images = to_u8(images)
-                dt = U8Normalize(keys=("image",))
-            splits[name] = Split(ArraySource({"image": images}), name=name,
-                                 device_transform=dt)
+                images, depth = to_u8(images), to_u8(depth)
+                dt = U8Normalize(keys=("image", "depth"))
+            splits[name] = Split(
+                ArraySource({"image": images, "depth": depth, **arrays}),
+                name=name, device_transform=dt)
         return splits

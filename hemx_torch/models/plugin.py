@@ -11,8 +11,11 @@ A model is constructed as ``Model(args, device)``, then:
   ``capture_activations`` / ``grad_report`` (stats per tensor).
 
 Ported: the BASELINE models ``cnn``, ``vae``, ``gan``, ``wgan`` and
-``iwgan``, each under hemx's name with hemx's ``arguments()``. The
-registry is an explicit table rather than ``hemx``'s package scan.
+``iwgan``, and the thesis depth models ``paper_cgan``, ``paper_sampler``,
+``paper_noise``, ``paper_baseline_sampler``, ``paper_standalone``,
+``paper_baseline_standalone`` and ``sampler_gan``, each under hemx's name
+with hemx's ``arguments()``. The registry is an explicit table rather
+than ``hemx``'s package scan.
 """
 
 from __future__ import annotations
@@ -27,7 +30,17 @@ _REGISTRY = {"cnn": "hemx_torch.models.cnn:CnnModel",
              "vae": "hemx_torch.models.vae:VaeModel",
              "gan": "hemx_torch.models.gan:GanModel",
              "wgan": "hemx_torch.models.gan:WganModel",
-             "iwgan": "hemx_torch.models.gan:IwganModel"}
+             "iwgan": "hemx_torch.models.gan:IwganModel",
+             "paper_cgan": "hemx_torch.models.paper_cgan:PaperCgan",
+             "paper_sampler": "hemx_torch.models.paper_family:PaperSampler",
+             "paper_noise": "hemx_torch.models.paper_family:PaperNoise",
+             "paper_baseline_sampler":
+                 "hemx_torch.models.paper_family:PaperBaselineSampler",
+             "paper_standalone":
+                 "hemx_torch.models.paper_family:PaperStandalone",
+             "paper_baseline_standalone":
+                 "hemx_torch.models.paper_family:PaperBaselineStandalone",
+             "sampler_gan": "hemx_torch.models.sampler_gan:SamplerGan"}
 
 
 # --dtype -> the compute dtype of every conv, deconv and dense
@@ -68,6 +81,16 @@ class ModelPlugin:
 
     def batches_per_train_call(self) -> int:
         return 1
+
+    def capture_activations(self, train_state, batch) -> Optional[dict]:
+        """Per-layer activation stats (``--summarize_activations``); None
+        (nothing written) where a model has none, as in hemx."""
+        return None
+
+    def grad_report(self, train_state, batch) -> Optional[dict]:
+        """Per-parameter gradient stats (``--summarize_gradients``); None
+        where a model has none."""
+        return None
 
 
 def get_model(name: str) -> Optional[type]:

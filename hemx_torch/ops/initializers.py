@@ -1,7 +1,8 @@
 """Parameter initializers (counterpart of ``hemx.ops.initializers``).
 
 Every variable — biases included — is Xavier-uniform with TF's fan rules,
-as in the reference. Shapes are given in the JAX/TF layout (HWIO conv,
+as in the reference, except where a model asks for ``normal(stddev)``
+(``sampler_gan``'s critic). Shapes are given in the JAX/TF layout (HWIO conv,
 ``[H, W, out, in]`` deconv, ``[in, out]`` dense) so the fans are computed
 exactly as ``hemx`` computes them; layers permute the draw into the torch
 layout. Draws come from an explicit ``torch.Generator`` (JAX's threefry
@@ -38,3 +39,11 @@ def xavier_uniform(shape, *, generator: torch.Generator) -> torch.Tensor:
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(tuple(shape), generator=generator, device=generator.device)
     return u * (2.0 * limit) - limit
+
+
+def normal(stddev: float = 0.02):
+    """An initializer drawing ``stddev * N(0, 1)`` float32."""
+    def init(shape, *, generator: torch.Generator) -> torch.Tensor:
+        return stddev * torch.randn(tuple(shape), generator=generator,
+                                    device=generator.device)
+    return init

@@ -80,30 +80,51 @@ def cast_in(x: torch.Tensor, w: torch.Tensor, dtype: Optional[torch.dtype]):
     return x, w
 
 
-def conv2d_op(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
-    """SAME conv of NCHW ``x`` with OIHW ``w`` (``hemx.ops.layers.conv2d_op``)."""
-    kh, kw = w.shape[2:]
-    ph = same_padding(x.shape[2], kh, stride)
-    pw = same_padding(x.shape[3], kw, stride)
-    if any(ph + pw):
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+def conv2d_op(x: torch.Tensor, w: torch.Tensor, stride: int,
+              padding: str = "SAME") -> torch.Tensor:
+    """SAME or VALID conv of NCHW ``x`` with OIHW ``w``
+    (``hemx.ops.layers.conv2d_op``)."""
+    if padding == "SAME":
+        kh, kw = w.shape[2:]
+        ph = same_padding(x.shape[2], kh, stride)
+        pw = same_padding(x.shape[3], kw, stride)
+        if any(ph + pw):
+            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    elif padding != "VALID":
+        raise ValueError(f"unknown padding '{padding}'")
     return F.conv2d(x, w, stride=stride)
 
 
 def deconv2d_op(x: torch.Tensor, w: torch.Tensor, out_hw: tuple[int, int],
-                stride: int) -> torch.Tensor:
-    """Transposed conv matching ``tf.nn.conv2d_transpose`` with SAME padding
-    (``hemx.ops.layers.deconv2d_op``); ``w`` is torch's (in, out, kh, kw)."""
+                stride: int, padding: str = "SAME") -> torch.Tensor:
+    """Transposed conv matching ``tf.nn.conv2d_transpose`` with SAME or
+    VALID padding (``hemx.ops.layers.deconv2d_op``); ``w`` is torch's
+    (in, out, kh, kw). ``out_hw`` must lie in TF's legal range for the
+    padding: SAME ``(in-1)*s+1 .. in*s``, VALID ``(in-1)*s+k .. in*s+k-1``.
+    A size beyond the full transpose (a VALID 5 -> 14 at k5 s2, whose
+    transpose is 13) gets zero rows and columns at the bottom and right, as
+    hemx pads them before the bias: ``output_padding`` adds them."""
     kh, kw = w.shape[2:]
     h, wd = x.shape[2:]
     oh, ow = out_hw
+    for axis, i_dim, o_dim, k_dim in (("H", h, oh, kh), ("W", wd, ow, kw)):
+        if padding == "SAME":
+            lo, hi = (i_dim - 1) * stride + 1, i_dim * stride
+        elif padding == "VALID":
+            lo, hi = (i_dim - 1) * stride + k_dim, i_dim * stride + k_dim - 1
+        else:
+            raise ValueError(f"unknown padding '{padding}'")
+        if not lo <= o_dim <= hi:
+            raise ValueError(
+                f"deconv2d_op: output {axis}={o_dim} is not a valid {padding} "
+                f"conv2d_transpose size for input {i_dim}, kernel {k_dim}, "
+                f"stride {stride} (legal: {lo}..{hi})")
     pad_h = (h - 1) * stride + kh - oh
     pad_w = (wd - 1) * stride + kw - ow
-    if pad_h < 0 or pad_w < 0:
-        raise ValueError(f"deconv2d_op: output {out_hw} larger than the full "
-                         f"transpose of {(h, wd)}; not supported")
-    lo_h, lo_w = pad_h // 2, pad_w // 2
-    y = F.conv_transpose2d(x, w, stride=stride, padding=(lo_h, lo_w))
+    extra = (max(-pad_h, 0), max(-pad_w, 0))
+    lo_h, lo_w = max(pad_h, 0) // 2, max(pad_w, 0) // 2
+    y = F.conv_transpose2d(x, w, stride=stride, padding=(lo_h, lo_w),
+                           output_padding=extra)
     return y[:, :, :oh, :ow]
 
 

@@ -1,5 +1,5 @@
-"""Losses of the BASELINE models and the IWGAN gradient penalty
-(counterpart of ``hemx.ops.losses``).
+"""Losses of the BASELINE models, the IWGAN gradient penalty and the depth
+models' losses (counterpart of ``hemx.ops.losses``).
 
 The log guards keep the reference's order: ``1 - p`` first, then ``+ eps``
 (``eps + (1 - p)``), so a sigmoid output of exactly 0 or 1 gives a finite
@@ -64,6 +64,29 @@ def wgan_g_loss(d_fake: torch.Tensor) -> torch.Tensor:
 def wgan_d_loss(d_real: torch.Tensor, d_fake: torch.Tensor) -> torch.Tensor:
     """Wasserstein critic loss (reference: models/gan.py:199)."""
     return torch.mean(d_fake) - torch.mean(d_real)
+
+
+def sigmoid_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``tf.nn.sigmoid_cross_entropy_with_logits`` in its stable form,
+    elementwise: ``max(z, 0) - z * labels + log1p(exp(-|z|))``. At z = 0
+    the gradient is JAX's: ``torch.maximum`` splits the tie in halves, and
+    ``|z|`` is written as a select whose slope there is 1, as ``jnp.abs``'s
+    is (``torch.abs``'s is 0)."""
+    abs_z = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, torch.zeros_like(logits)) - logits * labels
+            + torch.log1p(torch.exp(-abs_z)))
+
+
+def rmse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Root mean squared error (reference: hem/ops/losses.py:10-11)."""
+    return torch.sqrt(torch.mean((a - b) ** 2))
+
+
+def rmse_scale_invariant(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
+    """The reference's scale-invariant RMSE, ``0.5 * (rmse(x, x_hat) +
+    mean(x_hat - x))`` in linear space (hem/ops/losses.py:14-15), not
+    Eigen et al.'s log-space form (``hemx_torch.metrics.eigen``)."""
+    return 0.5 * (rmse(x, x_hat) + torch.mean(x_hat - x))
 
 
 def gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],

@@ -2,9 +2,6 @@
 of ``hemx.summaries.events``). TFRecord framing (length + masked CRC-32C)
 of Event protos; the first record is the file_version event
 ("brain.Event:2").
-
-``EventsWriter.moments`` (it needs ``hemx.ops.images.colorize``) is not
-ported: no IWGAN path writes it.
 """
 
 from __future__ import annotations
@@ -74,6 +71,21 @@ class EventsWriter:
                 grid=None) -> None:
         """Stitch (N,H,W,C) examples into a grid image summary."""
         self.image(tag, montage(np.asarray(images), grid), step)
+
+    def moments(self, tag: str, batch: np.ndarray, step: int) -> None:
+        """Batch mean and variance scalars, and for (N, H, W, C) batches the
+        channel-mean variance map colorized (reference:
+        hem/ops/summaries.py:87-95 summarize_moments)."""
+        from hemx_torch.ops.images import colorize
+
+        arr = np.asarray(batch, np.float32)
+        mean = arr.mean(axis=0)
+        var = arr.var(axis=0)
+        self.scalar(f"{tag}/mean", float(mean.mean()), step)
+        self.scalar(f"{tag}/variance", float(var.mean()), step)
+        if var.ndim == 3:
+            v = var.mean(axis=-1, keepdims=True)
+            self.image(f"{tag}/variance_image", colorize(v), step)
 
     def flush(self) -> None:
         self._f.flush()

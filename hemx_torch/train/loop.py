@@ -165,12 +165,13 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
                         if k != "grad_finite"}, step)
         model.write_summaries(wr, step, ts, summary_batch)
         if args.summarize_activations:
-            common.write_stat_summaries(
-                wr, step, model.capture_activations(ts, summary_batch),
-                "activations")
+            stats = model.capture_activations(ts, summary_batch)
+            if stats:
+                common.write_stat_summaries(wr, step, stats, "activations")
         if args.summarize_gradients:
-            common.write_stat_summaries(
-                wr, step, model.grad_report(ts, summary_batch), "gradients")
+            stats = model.grad_report(ts, summary_batch)
+            if stats:
+                common.write_stat_summaries(wr, step, stats, "gradients")
         if end_of_epoch and args.summarize_weights:
             params, _ = convert.to_jax(ts.nets)
             for path, leaf in convert.flatten_tree(params).items():

@@ -175,6 +175,21 @@ def ftrl(lr: float) -> Transform:
     return Transform(init, update)
 
 
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999) -> Transform:
+    """``optax.adam(lr, b1, b2)``: ``chain(scale_by_adam, scale_by_learning_rate)``."""
+    return chain(scale_by_adam(b1, b2), scale_by_learning_rate(lr))
+
+
+def rmsprop(lr: float) -> Transform:
+    """``optax.rmsprop(lr)`` at optax's defaults: decay 0.9, eps 1e-8 inside
+    the square root, the accumulator starting at zeros, no momentum (an
+    ``identity()`` in the chain's third slot). Not the switch's rmsprop,
+    whose TF parity starts at ones with eps 1e-10 (paper_cgan's ``wgan``
+    generator uses this one, ``hemx/models/paper_cgan.py:64-69``)."""
+    return chain(scale_by_rms(0.9, 1e-8, 0.0), scale_by_learning_rate(lr),
+                 _empty())
+
+
 class Optimizer:
     """A transform applied to the parameters of ``module``:
     ``step(grads)`` computes the updates from ``grads`` (in
@@ -215,8 +230,7 @@ def make_transform(args) -> Transform:
     if name == "momentum":
         return chain(trace(args.momentum), scale_by_learning_rate(args.lr))
     if name == "adam":
-        return chain(scale_by_adam(args.beta1, args.beta2),
-                     scale_by_learning_rate(args.lr))
+        return adam(args.lr, args.beta1, args.beta2)
     if name == "ftrl":
         return ftrl(args.lr)
     raise ValueError(f"unknown optimizer: {name}")

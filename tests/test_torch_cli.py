@@ -1,9 +1,9 @@
 """hemx_torch's CLI and package boundary.
 
 * The port never loads JAX: importing its modules in a fresh interpreter
-  leaves ``jax`` (and ``hemx``, ``flax``, ``optax``, ``msgpack``) out of
-  sys.modules, and no source file imports them; nor PIL, which only a
-  non-PNG image would load.
+  leaves ``jax`` (and ``hemx``, ``flax``, ``optax``, ``msgpack``,
+  ``matplotlib``, ``paper_train``) out of sys.modules, and no source file
+  imports them; nor PIL, which only a non-PNG image would load.
 * ``python -m hemx_torch.cli ... --device cpu`` trains at a tiny size and
   reports ``step == epoch_size``; without ``--model`` it trains the CNN;
   ``--device cuda`` without a GPU fails; a model not ported yet exits 2.
@@ -57,11 +57,14 @@ def test_port_does_not_load_jax():
             "import hemx_torch.train.checkpoint, hemx_torch.summaries.reader\n"
             "import hemx_torch.data.plugin, hemx_torch.data.pipeline\n"
             "import hemx_torch.data.tfrecord, hemx_torch.data.imageio\n"
+            "import hemx_torch.paper_train, hemx_torch.metrics.eigen\n"
+            "import hemx_torch.models.paper_cgan, hemx_torch.models.sampler_gan\n"
+            "import hemx_torch.models.paper_family, hemx_torch.ops.images\n"
             "from hemx_torch.data.plugin import available_datasets\n"
             "assert len(available_datasets()) == 5  # imports every plugin\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'hemx',\n"
-            "        'PIL')]\n"
+            "        'PIL', 'matplotlib', 'paper_train')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     r = _run(["-c", code])
@@ -69,8 +72,11 @@ def test_port_does_not_load_jax():
 
 
 def test_sources_import_no_jax_or_hemx():
+    """No source of the port, nor chip_smoke.py, imports JAX, flax, optax,
+    msgpack, matplotlib, hemx or the root paper_train.py."""
     pat = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack|hemx)\b", re.M)
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack|matplotlib|hemx"
+        r"|paper_train)\b", re.M)
     for path in (REPO / "hemx_torch").rglob("*.py"):
         assert not pat.search(path.read_text()), path
     assert not pat.search((REPO / "chip_smoke.py").read_text())
@@ -102,7 +108,10 @@ def test_cli_unknown_model_exits_2(capsys):
     from hemx_torch import cli
     assert cli.main(["--model", "pix2pix", "--dataset", "synthetic",
                      "--device", "cpu"]) == 2
-    assert "['cnn', 'gan', 'iwgan', 'vae', 'wgan']" in capsys.readouterr().err
+    assert ("['cnn', 'gan', 'iwgan', 'paper_baseline_sampler', "
+            "'paper_baseline_standalone', 'paper_cgan', 'paper_noise', "
+            "'paper_sampler', 'paper_standalone', 'sampler_gan', 'vae', "
+            "'wgan']") in capsys.readouterr().err
 
 
 def test_cli_default_model_is_cnn(tmp_path):
@@ -155,8 +164,8 @@ def test_shared_flags_match_hemx_defaults():
     for hemx_cls, port_cls in pairs:
         h_args = hemx_cls.arguments()
         for flag, spec in port_cls.arguments().items():
-            assert spec.get("default") == h_args[flag].get("default"), flag
-            assert spec.get("type") == h_args[flag].get("type"), flag
+            for key in ("default", "type", "choices", "action"):
+                assert spec.get(key) == h_args[flag].get(key), (flag, key)
 
 
 def test_nyuv2_resize_flag_wins(tmp_path):

@@ -41,7 +41,9 @@ def test_make_images_and_u8_rounding_match_hemx(n, h, w, c, seed):
 @pytest.mark.parametrize("u8", [False, True])
 def test_synthetic_train_split_matches_hemx(u8):
     """Every split (train, validate, test, seeded seed, seed+1, seed+2, the
-    eval splits sized by --synthetic_eval_count) equals hemx's."""
+    eval splits sized by --synthetic_eval_count) equals hemx's, key by key
+    (image, depth, x_loc, y_loc, mean), in value, dtype and shape, and the
+    uint8 transform covers image and depth."""
     from hemx.data.synthetic import SyntheticDataset as H
     from hemx_torch.data.synthetic import SyntheticDataset as T
     args = make_args(synthetic_count=12, synthetic_shape=[8, 8, 3],
@@ -51,9 +53,15 @@ def test_synthetic_train_split_matches_hemx(u8):
     for name in ("train", "validate", "test"):
         want, got = want_splits[name], got_splits[name]
         assert got.count == want.count == (12 if name == "train" else 5)
-        np.testing.assert_array_equal(got.source.arrays["image"],
-                                      want.source.arrays["image"])
+        assert sorted(got.source.arrays) == sorted(want.source.arrays) == [
+            "depth", "image", "mean", "x_loc", "y_loc"]
+        for k, w in want.source.arrays.items():
+            g = got.source.arrays[k]
+            assert g.dtype == w.dtype and g.shape == w.shape, k
+            np.testing.assert_array_equal(g, w, err_msg=k)
         assert (got.device_transform is not None) == u8
+        if u8:
+            assert got.device_transform.keys == ("image", "depth")
 
 
 @pytest.mark.parametrize("shuffle", [True, False])
@@ -75,7 +83,9 @@ def test_epoch_indices_match_hemx(shuffle):
 @pytest.mark.parametrize("u8", [True, False])
 def test_device_pipeline_matches_hemx(u8):
     """2 epochs of 7 batches with group=3: two grouped gathers and one
-    per-batch tail batch per epoch, bit-equal to hemx's."""
+    per-batch tail batch per epoch, bit-equal to hemx's, for every key of
+    the synthetic split (the uint8 image and depth through the kernel's
+    plain version, the float keys gathered as they are)."""
     from hemx.data.pipeline import DeviceDataPipeline as HP
     from hemx.data.synthetic import SyntheticDataset as HD
     from hemx.parallel.mesh import make_mesh
@@ -85,19 +95,23 @@ def test_device_pipeline_matches_hemx(u8):
                      synthetic_u8=u8)
     gb = 16
     hp = HP.maybe(HD.get_datasets(args)["train"], gb, mesh=make_mesh(0),
-                  keys=("image",), shuffle=True, seed=9, group=3)
+                  keys=None, shuffle=True, seed=9, group=3)
     tp = TP.maybe(TD.get_datasets(args)["train"], gb, device="cpu",
-                  keys=("image",), shuffle=True, seed=9, group=3)
+                  keys=None, shuffle=True, seed=9, group=3)
     assert hp is not None and tp is not None
     for e in range(2):
-        want = [np.asarray(jax.device_get(b["image"])) for b in hp.epoch(e)]
+        want = [jax.device_get(b) for b in hp.epoch(e)]
         got = list(tp.epoch(e))
         assert len(got) == len(want) == 7
         for g, w in zip(got, want):
-            assert g["image"].dtype == torch.float32
-            assert g["image"].is_contiguous(memory_format=torch.channels_last)
-            np.testing.assert_array_equal(
-                g["image"].permute(0, 2, 3, 1).numpy(), w)
+            assert sorted(g) == sorted(w) == ["depth", "image", "mean",
+                                              "x_loc", "y_loc"]
+            for k in w:
+                assert g[k].dtype == torch.float32, k
+                assert g[k].is_contiguous(memory_format=torch.channels_last), k
+                np.testing.assert_array_equal(
+                    g[k].permute(0, 2, 3, 1).numpy(), np.asarray(w[k]),
+                    err_msg=k)
 
 
 def test_device_pipeline_budget():
