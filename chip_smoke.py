@@ -85,8 +85,7 @@ prints its last line):
    weight, over the atol), then ``predict``; losses rtol 5e-4 / atol
    1e-5, gradient norms, params, BN stats and the Eigen scalars of the
    prediction rtol 2e-3 / atol 2e-5; prints the tolerance each needed.
-   Adam and optax's rmsprop are held to optax by the CPU tests, and run
-   on the card in phase 11.
+   Each model's own optimizer is then held on the card as phase 12 says.
 11. The thesis slice at full width through ``hemx_torch.paper_train``
    (scripts/thesis_runs.sh's COMMON: 4,096 / 512 synthetic 65x65x3 uint8
    images, bs256, seed 7, its optimizer flags; one epoch = 16 calls):
@@ -103,17 +102,45 @@ prints its last line):
    paper_sampler per site), 3 calls. Prints each run's median call,
    images/s (a call counts one batch) and the moments' host seconds.
 
-Phase 2 also times the kernel on the thesis set's rows (512 of 65x65x3 and
-of 65x65x1, 12,675 and 4,225 bytes, not 16-byte aligned), by CUDA events
-and by the device time torch.profiler records (these gathers are short
-enough that an event pair around one launch mostly times the host's
-launch latency).
+12. Card vs CPU for the second generation (f32, ``--precision highest``,
+   batch 4, phase 10's checks, sgd): ``improved_sampler`` A1/A1 at 65x65,
+   B1/B1 at 66x66 and E1/E1 with ``--g_sparsity --g_rmse`` at 64x64 (the
+   bottleneck's zero fraction may differ by 2 of its 4,096 entries, and
+   ``g_loss`` by that much more), ``mean_depth_estimator`` and the
+   ``experimental_sampler`` composed with an estimator, at 64x64.
+   Phases 10 and 12 then step each model once on the card with its own
+   optimizer (a1.config's Adam here) and apply the CPU's optax-exact
+   transform to the card's own gradients, moved to the CPU: the updates
+   agree at rtol 1e-5 (plus one float32 ulp of the parameter per step)
+   and the moments at rtol 1e-5.
+13. The second generation at full width through its entry points, from
+   hemx's config files (``@examples/improved_sampler/*.config``) on
+   synthetic uint8 sets of 4,096 / 512 images at each run's patch size,
+   seed 7: (a) ``a1.config`` (A1/A1, 65 px, bs256, Adam 1e-4 / 0.5, f32),
+   an epoch of 16 calls then ``--epochs +1`` with phase 6's checks (resume
+   bit-exact, conv products f32); (b) ``ff.sparsity.config`` (E1/E1, 64
+   px, bs512, 8 calls); (c) ``gb1.db1.config`` (B1/B1, 66 px, bs512, 8
+   calls); (d) ``experimental.config`` through ``python -m
+   hemx_torch.experimental`` at bs64 with ``--estimator_epochs 1 --epochs
+   1`` (the published 30 and 10 cut), sampler lr 1e-4; (e)
+   ``hemx_torch.paper_metrics`` and ``hemx_torch.paper_fullimage
+   --scene_shape 240 320 3 --strides 8 4 2`` on phase 11's paper_cgan run.
+   Each prints its median call, images/s (patches/s for (e)), its wall
+   time and the input kernel's launches beside the expected count.
+
+Phase 2 also times the kernel on the thesis sets' rows (512 of 65x65x3 and
+65x65x1, 12,675 and 4,225 bytes, not 16-byte aligned; of 66x66x3 and
+66x66x1, 13,068 and 4,356 bytes; of 64x64x3 and 64x64x1), by CUDA events
+and by the device time torch.profiler records with the 50 MB L2 cache
+flushed before each launch (these gathers are short enough that an event
+pair around one launch mostly times the host's launch latency, and small
+enough to stay in L2 from one launch to the next).
 
 The line before the last is a JSON list of the kernels with their launch
-counts summed over phases 4, 6, 8, 9 and 11 (each path's counts set to 0
-just before it and read just after; by phase under ``launches_by_phase``),
-their phase-2 errors and times, and their bound; the last line is
-``{"ok": true, "device": {...}}``.
+counts summed over phases 4, 6, 8, 9, 11 and 13 (each path's counts set to
+0 just before it and read just after; by phase under
+``launches_by_phase``), their phase-2 errors and times, and their bound;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -215,21 +242,27 @@ def _median_ms(torch, fns: dict, n: int = 25, warmup: int = 3) -> dict:
             for k, v in events.items()}
 
 
-def _device_ms(torch, fn, n: int = 20) -> float:
+def _device_ms(torch, fn, n: int = 20, flush=None) -> float:
     """Device time per call of ``fn``: the summed duration of the CUDA
     kernels ``n`` calls launch, from ``torch.profiler``, over ``n``. Unlike
     a CUDA-event pair around one call, it leaves out the host's launch
-    latency, which an idle device waits through."""
+    latency, which an idle device waits through. ``flush`` (a 256 MB
+    ``zero_``, a fill kernel, left out of the sum) runs before each call,
+    so a gather smaller than the 50 MB L2 cache finds it cold, as a train
+    call's gather of fresh rows does."""
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+             if e.device_type == DeviceType.CUDA
+             and not (flush is not None and "FillFunctor" in e.name))
     check(us > 0, "the profiler recorded no device time")
     return us / n / 1e3
 
@@ -266,38 +299,47 @@ def phase_kernel(torch, dev) -> dict:
         check(err <= 1e-6, f"kernel disagrees with plain version: {err}")
         max_err = max(max_err, err)
     thesis = []
-    for c in (3, 1):  # the thesis set's image and depth: 65x65 rows
-        d65 = torch.randint(0, 256, (4096, 65, 65, c), dtype=torch.uint8,
+    l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush = l2_flush.zero_
+    # the thesis sets' image and depth rows: 65x65 (paper models, A*),
+    # 66x66 (B1, C1) and 64x64 (B2, D1, E1, the experimental sampler)
+    for side, c in ((65, 3), (65, 1), (66, 3), (66, 1), (64, 3), (64, 1)):
+        d65 = torch.randint(0, 256, (4096, side, side, c), dtype=torch.uint8,
                             device=dev, generator=g)
         i65 = torch.randperm(4096, device=dev, generator=g)[:512]
         a = K.gather_u8_normalize(d65, i65, 0.0, 1.0)
         b = K.gather_u8_normalize_ref(d65, i65, 0.0, 1.0)
         torch.cuda.synchronize()
-        check(a.shape == (512, c, 65, 65)
+        check(a.shape == (512, c, side, side)
               and a.is_contiguous(memory_format=torch.channels_last),
-              f"kernel output {tuple(a.shape)} on 65x65x{c} rows")
+              f"kernel output {tuple(a.shape)} on {side}x{side}x{c} rows")
         err = (a - b).abs().max().item()
-        check(err <= 1e-6, f"kernel disagrees on 65x65x{c} rows: {err}")
+        check(err <= 1e-6, f"kernel disagrees on {side}x{side}x{c} rows: "
+                           f"{err}")
         max_err = max(max_err, err)
         t = _median_ms(torch, {
             "kernel": lambda: K.gather_u8_normalize(d65, i65, 0.0, 1.0),
             "plain": lambda: K.gather_u8_normalize_ref(d65, i65, 0.0, 1.0)})
         d = {"kernel": _device_ms(
-                 torch, lambda: K.gather_u8_normalize(d65, i65, 0.0, 1.0)),
+                 torch, lambda: K.gather_u8_normalize(d65, i65, 0.0, 1.0),
+                 flush=flush),
              "plain": _device_ms(
-                 torch, lambda: K.gather_u8_normalize_ref(d65, i65, 0.0, 1.0))}
-        row = 65 * 65 * c
+                 torch, lambda: K.gather_u8_normalize_ref(d65, i65, 0.0, 1.0),
+                 flush=flush)}
+        row = side * side * c
         moved = 512 * (row * 5 + i65.element_size())
         bound = moved / HBM_BYTES_PER_S * 1e3
-        thesis.append({"rows": f"512x65x65x{c}", "row_bytes": row,
+        thesis.append({"rows": f"512x{side}x{side}x{c}", "row_bytes": row,
                        "max_abs_err": err, "ms": t["kernel"],
                        "plain_ms": t["plain"], "device_ms": d["kernel"],
                        "plain_device_ms": d["plain"], "bound_ms": bound})
-        print(f"gather_u8_normalize 512x65x65x{c} ({row} B rows, not "
-              f"16-byte aligned): max abs diff {err:.3g}; kernel "
+        aligned = "" if row % 16 == 0 else ", not 16-byte aligned"
+        print(f"gather_u8_normalize 512x{side}x{side}x{c} ({row} B rows"
+              f"{aligned}): max abs diff {err:.3g}; kernel "
               f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms (median of "
               f"25 CUDA-event timed launches, launch latency included); "
-              f"device time (torch.profiler, 20 calls) kernel "
+              f"device time (torch.profiler, 20 calls, L2 flushed before "
+              f"each) kernel "
               f"{d['kernel']:.4f} ms, plain {d['plain']:.4f} ms; bound "
               f"{bound:.4f} ms ({moved / 1e6:.2f} MB at 3.35 TB/s), kernel "
               f"at {100 * bound / t['kernel']:.0f} % of it by events, "
@@ -1091,60 +1133,87 @@ DEPTH_CARD_VS_CPU = (
                            "--batch_norm_gen", "--batch_norm_disc"])])
 
 
-def _depth_call_each(torch, dev, model_name: str, batch: int, flags) -> dict:
-    """One train call of a depth model from the same weights, batches and
-    seam noise on the CPU and on ``dev``, then ``predict`` on the first
-    batch: {device: (metrics, (params, mstate), batches, Eigen scalars of
-    the prediction or None)}."""
-    from hemx_torch import convert
+def _depth_setup(torch, d, model_name: str, batch: int, flags, size: int,
+                 compose: bool):
+    """(args, model, train state, one call's batches) of a depth model on
+    device ``d``, weights from the seed (drawn on the CPU, so equal on every
+    device); with ``compose`` an experimental sampler composed with a
+    mean-depth estimator made the same way."""
     from hemx_torch.config import parse_args
     from hemx_torch.data.pipeline import DeviceDataPipeline
     from hemx_torch.data.synthetic import SyntheticDataset
-    from hemx_torch.metrics.eigen import eigen_metrics
-    from hemx_torch.models.conditional import draw_noise
     from hemx_torch.models.plugin import get_model
     from hemx_torch.ops.layers import set_precision
-    from hemx_torch.train.optimizers import Optimizer, make_transform
 
     args = parse_args(["--model", model_name, "--dataset", "synthetic",
                        "--synthetic_u8", "--synthetic_count", "64",
-                       "--synthetic_shape", "65", "65", "3", "--batch_size",
-                       str(batch), "--precision", "highest", "--seed", "0"]
-                      + flags)
+                       "--synthetic_shape", str(size), str(size), "3",
+                       "--batch_size", str(batch), "--precision", "highest",
+                       "--seed", "0"] + flags)
     set_precision(args.precision)
     split = SyntheticDataset.get_datasets(args)["train"]
-    cls = get_model(model_name)
+    model = get_model(model_name)(args, d)
+    if compose:
+        est = get_model("mean_depth_estimator")(args, d)
+        model.set_estimator(est, est.init_state((3, size, size), args.seed))
+    ts = model.init_state((3, size, size), args.seed)
+    n = model.batches_per_train_call()
+    pipe = DeviceDataPipeline(split, batch, device=d, keys=model.batch_keys,
+                              seed=0, group=n)
+    return args, model, ts, list(pipe.epoch(0))[:n]
+
+
+def _seam(torch, model, ts, batches, seed: int = 1):
+    """The seam noise of one train call and of a predict (drawn on the
+    CPU), or (None, None) for a model without noise."""
+    from hemx_torch.models.conditional import draw_noise
+    if not isinstance(ts.nets, torch.nn.ModuleDict):
+        return None, None
+    g = torch.Generator()
+    g.manual_seed(seed)
+    G = ts.nets["generator"]
+    noise = [draw_noise(G, g, batches[min(i, len(batches) - 1)]["image"])
+             for i in range(model.n_substeps())]
+    return noise, draw_noise(G, g, batches[0]["image"])
+
+
+def _depth_call_each(torch, dev, model_name: str, batch: int, flags,
+                     size: int = 65, compose: bool = False) -> dict:
+    """One train call of a depth model from the same weights, batches and
+    seam noise on the CPU and on ``dev``, every optimizer replaced by sgd
+    1e-3, then ``predict`` (an estimator's ``predict_mean``) on the first
+    batch: {device: (metrics, (params, mstate), batches, Eigen scalars of
+    the prediction or None)}."""
+    from hemx_torch import convert
+    from hemx_torch.metrics.eigen import eigen_metrics
+    from hemx_torch.train.optimizers import Optimizer, make_transform
+
     out, noise = {}, None
     for d in ("cpu", dev):
-        model = cls(args, d)
-        ts = model.init_state((3, 65, 65), args.seed)
-        n = model.batches_per_train_call()
-        pipe = DeviceDataPipeline(split, batch, device=d,
-                                  keys=("image", "depth"), seed=0, group=n)
-        batches = list(pipe.epoch(0))[:n]
+        _, model, ts, batches = _depth_setup(torch, d, model_name, batch,
+                                             flags, size, compose)
         gan = isinstance(ts.nets, torch.nn.ModuleDict)
-        if gan and noise is None:  # drawn once, on the CPU
-            g = torch.Generator()
-            g.manual_seed(1)
-            G = ts.nets["generator"]
-            noise = [draw_noise(G, g, b["image"]) for b in batches]
-            pred_noise = draw_noise(G, g, batches[0]["image"])
+        if noise is None:  # drawn once, on the CPU
+            noise, pred_noise = _seam(torch, model, ts, batches)
         # sgd in place of the model's Adam / rmsprop, as phase 7 steps: a
         # parameter's card-vs-CPU difference is then lr times its
         # gradient's; Adam's first step, lr * g / (|g| + 1e-8), would turn
         # a 2e-8 difference in a near-zero gradient into 4.9e-5 of weight
+        # (the models' own optimizers are held by _own_optimizer_on_card)
         sgd = make_transform(argparse.Namespace(optimizer="sgd", lr=1e-3))
         ts.opt = ({k: Optimizer(o.module, sgd) for k, o in ts.opt.items()}
                   if gan else Optimizer(ts.opt.module, sgd))
         ts, metrics = model.train(ts, iter(batches),
                                   **({"noise": noise} if gan else {}))
-        pred, prep = model.predict(ts, batches[0],
-                                   **({"noise": pred_noise} if gan else {}))
         eig = None
-        if model.depth_range() == (0.0, 10.0):  # meters: Eigen on /10
-            eig = {k: float(v) for k, v in eigen_metrics(
-                (prep["y"] / 10.0).clamp(min=1e-3).cpu(),
-                (pred / 10.0).clamp(min=1e-3).cpu()).items()}
+        if gan:
+            pred, prep = model.predict(ts, batches[0], noise=pred_noise)
+            if model.depth_range() == (0.0, 10.0):  # meters: Eigen on /10
+                eig = {k: float(v) for k, v in eigen_metrics(
+                    (prep["y"] / 10.0).clamp(min=1e-3).cpu(),
+                    (pred / 10.0).clamp(min=1e-3).cpu()).items()}
+        elif hasattr(model, "predict_mean"):
+            eig = {"predict_mean": model.predict_mean(ts, batches[0]).cpu()}
         out[str(d)] = ({k: float(v) for k, v in metrics.items()},
                        convert.to_jax(ts.nets),
                        [torch.cat([b["image"], b["depth"]], 1).cpu()
@@ -1152,39 +1221,168 @@ def _depth_call_each(torch, dev, model_name: str, batch: int, flags) -> dict:
     return out
 
 
+def _own_optimizer_on_card(torch, dev, model_name: str, batch: int, flags,
+                           size: int = 65, compose: bool = False) -> float:
+    """One train call on the card with the model's own optimizers (Adam
+    for the models of this script's lists but sampler_gan, which keeps
+    hemx's switch), each step's gradients recorded; then the CPU applies
+    the same optax-exact transforms to those gradients, moved to the CPU,
+    from the same start (and clips under ``wgan`` where the model does).
+    The card's parameters must equal the CPU's within rtol 1e-5 of the
+    summed |update| of their steps plus one float32 ulp of the parameter
+    per step (each step's add may round to the other neighbour), and its
+    optimizer moments at rtol 1e-5: the optimizer on the card, held apart
+    from the gradient's rounding. Returns the largest relative update
+    difference."""
+    import copy
+
+    import numpy as np
+    from hemx_torch import convert
+    from hemx_torch.train.optimizers import Optimizer, clip_params
+
+    args, model, ts, batches = _depth_setup(torch, dev, model_name, batch,
+                                            flags, size, compose)
+    noise, _ = _seam(torch, model, ts, batches)
+    opts = ts.opt if isinstance(ts.opt, dict) else {"": ts.opt}
+    where = {id(m): n for n, m in ts.nets.named_modules()}
+    cpu_nets = copy.deepcopy(ts.nets).cpu()
+    before = {n: p.detach().clone() for n, p in cpu_nets.named_parameters()}
+    cpu_opts = {k: Optimizer(cpu_nets.get_submodule(where[id(o.module)]),
+                             o.tx) for k, o in opts.items()}
+    steps = []
+    for k, o in opts.items():
+        def record(grads, k=k, real=o.step):
+            steps.append((k, [g.detach().cpu().clone() for g in grads]))
+            real(grads)
+        o.step = record
+    ts, _ = model.train(ts, iter(batches),
+                        **({"noise": noise} if noise is not None else {}))
+    wgan = getattr(model, "training_version", "gan") == "wgan"
+    # per parameter: the sum of |update| over the steps and the steps taken
+    moved = {n: np.zeros(p.shape) for n, p in cpu_nets.named_parameters()}
+    taken = dict.fromkeys(moved, 0)
+    for k, grads in steps:
+        mod = cpu_opts[k].module
+        prefix = f"{where[id(opts[k].module)]}." if where[id(opts[k].module)] \
+            else ""
+        old = {n: p.detach().clone() for n, p in mod.named_parameters()}
+        cpu_opts[k].step(grads)
+        if wgan and (k == "d" or getattr(model, "clip_generator", True)):
+            clip_params(mod.parameters(), model.clip_value)
+        for n, p in mod.named_parameters():
+            moved[prefix + n] += (p.detach() - old[n]).abs().double().numpy()
+            taken[prefix + n] += 1
+    label = f"{model_name} {' '.join(flags)}"
+    worst = 0.0
+    for n, p in cpu_nets.named_parameters():
+        got = dict(ts.nets.named_parameters())[n].detach().cpu().numpy()
+        want = p.detach().numpy()
+        # each step's add may round to the other neighbour once its update
+        # differs in the last bit: one float32 ulp per step taken
+        ulp = taken[n] * np.spacing(np.maximum(np.abs(want),
+                                               np.abs(before[n].numpy())))
+        err = np.abs(got.astype(np.float64) - want)
+        check(bool(np.all(err <= 1e-5 * moved[n] + ulp)),
+              f"{label}: the card's update of {n} is not the CPU "
+              f"optimizer's on the card's gradients (max |diff| "
+              f"{err.max():.3g})")
+        rel = np.maximum(err - ulp, 0.0) / np.maximum(moved[n], 1e-30)
+        worst = max(worst, float(rel.max()))
+    for k, o in opts.items():
+        got = convert.flatten_tree(convert.opt_state_to_jax(o))
+        want = convert.flatten_tree(convert.opt_state_to_jax(cpu_opts[k]))
+        check(got.keys() == want.keys(), f"{label}: optimizer state keys")
+        for key in want:
+            _close(got[key], want[key], 1e-5, 0.0, f"{label} opt {k} {key}")
+    print(f"{label}: {len(steps)} steps of its own optimizer on the card; "
+          f"the CPU's optax-exact transform on the card's gradients gives "
+          f"the same updates (largest relative difference {worst:.3g}, "
+          f"bound 1e-5) and moments", flush=True)
+    return worst
+
+
+def _compare_depth(torch, dev, label: str, out: dict, batch: int,
+                   sparsity_n: int = 0) -> None:
+    """Phase 7's check of one depth-model call on the card and the CPU:
+    losses rtol 5e-4 / atol 1e-5; gradient norms, params, BN stats and the
+    Eigen scalars (or predicted means) of the prediction rtol 2e-3 / atol
+    2e-5. ``sparsity_n``: the entries of G's bottleneck, whose fraction of
+    exact zeros (``sparsity_term``) may differ by 2 counts (a
+    pre-activation near 0 may round to the other side), and ``g_loss``,
+    which subtracts it, by that difference more."""
+    import numpy as np
+    (m_gpu, _, b_gpu, e_gpu), (m_cpu, _, b_cpu, e_cpu) = (out[str(dev)],
+                                                          out["cpu"])
+    for a, b in zip(b_gpu, b_cpu):
+        check(torch.equal(a, b), f"{label}: cuda and cpu batches differ")
+    check(set(m_gpu) == set(m_cpu), f"{label}: metrics {m_gpu} vs {m_cpu}")
+    need = {}
+    flips = abs(m_gpu.get("sparsity_term", 0.0) - m_cpu.get("sparsity_term",
+                                                           0.0))
+    for k in m_cpu:
+        rtol, atol = ((2e-3, 2e-5) if k.endswith("grad_norm")
+                      else (5e-4, 1e-5))
+        if k == "sparsity_term":
+            rtol, atol = 0.0, 2.0 / sparsity_n + 1e-7
+        elif k == "g_loss" and sparsity_n:
+            atol += flips
+        _close(m_gpu[k], m_cpu[k], rtol, atol, f"{label} {k}")
+        need[k] = abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+    worst_abs, worst_excess = _compare_trees(out, dev, 2e-3, 2e-5)
+    eig_need = 0.0
+    if e_cpu is not None:
+        for k in e_cpu:
+            _close(e_gpu[k], e_cpu[k], 2e-3, 2e-5, f"{label} eigen {k}")
+            a, b = np.asarray(e_gpu[k]), np.asarray(e_cpu[k])
+            eig_need = max(eig_need, float((np.abs(a - b)
+                                            / np.abs(b).clip(1e-30)).max()))
+    print(f"card vs cpu, {label} (batch {batch}, highest): relative "
+          f"difference of each metric (the rtol it needed) "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(need.items()))
+          + (f" (sparsity_term {flips * sparsity_n:.0f} of {sparsity_n} "
+             f"entries apart)" if sparsity_n else "")
+          + f"; params and BN stats max |cuda-cpu| {worst_abs:.3g}, "
+          f"atol needed at rtol 2e-3 {max(worst_excess, 0.0):.3g}"
+          + (f"; prediction scalars rtol needed {eig_need:.3g}"
+             if e_cpu is not None else ""), flush=True)
+
+
 def phase_depth_card_vs_cpu(torch, dev) -> None:
     """Phase 7's check for the depth models at 65x65 (f32, highest, each
-    optimizer replaced by sgd 1e-3): losses rtol 5e-4 / atol 1e-5;
-    gradient norms, params, BN stats and the Eigen scalars of the
-    prediction rtol 2e-3 / atol 2e-5."""
+    optimizer replaced by sgd 1e-3), then each model's own optimizer on
+    the card against the CPU's on the card's gradients."""
     for name, batch, flags in DEPTH_CARD_VS_CPU:
         out = _depth_call_each(torch, dev, name, batch, flags)
-        (m_gpu, _, b_gpu, e_gpu), (m_cpu, _, b_cpu, e_cpu) = (out[str(dev)],
-                                                              out["cpu"])
-        label = f"{name} {' '.join(flags)}"
-        for a, b in zip(b_gpu, b_cpu):
-            check(torch.equal(a, b), f"{label}: cuda and cpu batches differ")
-        check(set(m_gpu) == set(m_cpu), f"{label}: metrics {m_gpu} vs {m_cpu}")
-        need = {}
-        for k in m_cpu:
-            rtol, atol = ((2e-3, 2e-5) if k.endswith("grad_norm")
-                          else (5e-4, 1e-5))
-            _close(m_gpu[k], m_cpu[k], rtol, atol, f"{label} {k}")
-            need[k] = abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
-        worst_abs, worst_excess = _compare_trees(out, dev, 2e-3, 2e-5)
-        eig_need = 0.0
-        if e_cpu is not None:
-            for k in e_cpu:
-                _close(e_gpu[k], e_cpu[k], 2e-3, 2e-5, f"{label} eigen {k}")
-                eig_need = max(eig_need, abs(e_gpu[k] - e_cpu[k])
-                               / max(abs(e_cpu[k]), 1e-30))
-        print(f"card vs cpu, {label} (65x65, batch {batch}, highest): "
-              f"relative difference of each metric (the rtol it needed) "
-              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(need.items()))
-              + f"; params and BN stats max |cuda-cpu| {worst_abs:.3g}, "
-              f"atol needed at rtol 2e-3 {max(worst_excess, 0.0):.3g}"
-              + (f"; Eigen scalars rtol needed {eig_need:.3g}"
-                 if e_cpu is not None else ""), flush=True)
+        _compare_depth(torch, dev, f"{name} {' '.join(flags)} 65x65", out,
+                       batch)
+        _own_optimizer_on_card(torch, dev, name, batch, flags)
+
+
+# phase 12: (model, batch, size, flags, composed) on the card and the CPU,
+# with a1.config's optimizer for the own-optimizer check
+SLICE_OPT = ["--optimizer", "adam", "--lr", "1e-4", "--beta1", "0.5"]
+SLICE_CARD_VS_CPU = [
+    ("improved_sampler", 4, 65, ["--g_arch", "A1", "--d_arch", "A1"], False),
+    ("improved_sampler", 4, 66, ["--g_arch", "B1", "--d_arch", "B1"], False),
+    ("improved_sampler", 4, 64, ["--g_arch", "E1", "--d_arch", "E1",
+                                 "--g_sparsity", "--g_rmse"], False),
+    ("mean_depth_estimator", 4, 64, [], False),
+    ("experimental_sampler", 4, 64, [], True)]
+
+
+def phase_slice_card_vs_cpu(torch, dev) -> None:
+    """Phase 10's checks for this slice's models: improved_sampler A1/A1
+    (65 px), B1/B1 (66 px), E1/E1 with --g_sparsity --g_rmse (64 px; its
+    bottleneck is 1x1x1024 per row), the mean-depth estimator and the
+    experimental sampler composed with an estimator (64 px)."""
+    for name, batch, size, flags, compose in SLICE_CARD_VS_CPU:
+        flags = flags + SLICE_OPT
+        out = _depth_call_each(torch, dev, name, batch, flags, size, compose)
+        label = f"{name} {' '.join(flags[:4])}{' composed' if compose else ''}"
+        _compare_depth(torch, dev, f"{label} {size}x{size}", out, batch,
+                       sparsity_n=batch * 1024 if "--g_sparsity" in flags
+                       else 0)
+        _own_optimizer_on_card(torch, dev, name, batch, flags, size, compose)
 
 
 # thesis_runs.sh's optimizer flags
@@ -1362,6 +1560,153 @@ def thesis_rows(torch, dev, card: str, common: list, calls: int = 3) -> None:
           + "; ".join(times), flush=True)
 
 
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "improved_sampler")
+
+
+def _slice_line(label: str, card: str, res: dict, batch: int, launches: int,
+                want: int) -> None:
+    s = res["summary"]
+    print(f"{label} on {card}: {s['calls']} calls, first call "
+          f"{s['first_call_s']:.4f} s, median call {s['median_call_s']:.4f} s, "
+          f"{s['images_per_s']:.1f} images/s (a call counts one batch of "
+          f"{batch}); {launches} input-kernel launches (expected {want})",
+          flush=True)
+
+
+def phase_slice(torch, dev, card: str, workdir: str, cgan_dir: str, *,
+                count: int = 4096, eval_count: int = 512) -> dict:
+    """This slice at full width through its entry points, on synthetic
+    uint8 sets of ``count`` / ``eval_count`` images at each run's patch
+    size, seed 7, from hemx's config files (``@FILE``, then the flags that
+    replace the NYUv2 input). Returns the input kernel's launches of each
+    run."""
+    from hemx_torch import cli, experimental, paper_fullimage, paper_metrics
+    from hemx_torch.ops import input_kernels as K
+
+    def synthetic(size: int, batch: int) -> list:
+        return ["--dataset", "synthetic", "--synthetic_u8",
+                "--synthetic_count", str(count), "--synthetic_eval_count",
+                str(eval_count), "--synthetic_shape", str(size), str(size),
+                "3", "--batch_size", str(batch), "--seed", "7",
+                "--device", str(dev)]
+
+    launches = {}
+    # (a) a1.config: A1/A1, 65 px, bs256, Adam(1e-4, beta1 0.5), f32, an
+    # epoch of 16 calls, then +1 with a bit-exact resume; each call gathers
+    # one batch of each uint8 key (image, depth)
+    batch, calls = 256, count // 256
+    d = os.path.join(workdir, "a1")
+    t0 = time.perf_counter()
+    out = run_and_resume(
+        torch, dev, d, ["@" + os.path.join(CONFIGS, "a1.config"),
+                        *synthetic(65, batch), "--dir", d],
+        calls, 1, count, eval_count, batch, run=cli.run, dtype="float32",
+        keys=2, eval_tags=["g_loss", "d_loss", "rmse", "l1"])
+    launches["a1_f32_run_and_resume"] = out["launches"]
+    print(f"a1.config run and resume: {time.perf_counter() - t0:.1f} s for "
+          f"both runs (data, summaries, checkpoints, validation)", flush=True)
+    want = 2 * 2 * run_launches(count, eval_count, batch, calls, 1)
+    print(f"launch formula (a): 2 runs x 2 uint8 keys x (expected_launches("
+          f"{count // batch} batches per data epoch, group 1, {calls} calls) "
+          f"+ 1 summary batch + {eval_count} / {batch} validation batches) = "
+          f"{want}", flush=True)
+    for r in (out["res1"], out["res2"]):
+        _slice_line(f"improved_sampler A1/A1 65x65 f32 bs{batch} (run and "
+                    f"resume)", card, r, batch, out["launches"], want)
+
+    def one_epoch(label, name, argv, batch, calls, entry=cli.run, runs=1):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = entry(argv + ["--epochs", "1", "--epoch_size", str(calls),
+                            "--max_to_keep", "1", "--dir",
+                            os.path.join(workdir, name)])
+        wall = time.perf_counter() - t0
+        n = K.LAUNCHES["gather_u8_normalize"]
+        want = runs * 2 * run_launches(count, eval_count, batch, calls, 1)
+        check(res["train_state"].step == calls,
+              f"{label}: step {res['train_state'].step}")
+        check(all(math.isfinite(v) for h in res["history"] for v in h.values()),
+              f"{label}: non-finite loss")
+        check(n == want, f"{label}: input kernel launched {n}, expected {want}")
+        _slice_line(label, card, res, batch, n, want)
+        print(f"{label}: {wall:.1f} s for the whole run (data, summaries, "
+              f"checkpoints, validation)", flush=True)
+        launches[name] = n
+        return res
+
+    # (b) ff.sparsity.config: E1/E1, 64 px, bs512, --g_sparsity, 8 calls
+    res = one_epoch("improved_sampler E1/E1 --g_sparsity 64x64 f32 bs512",
+                    "e1_sparsity", ["@" + os.path.join(
+                        CONFIGS, "ff.sparsity.config"), *synthetic(64, 512)],
+                    512, 8)
+    sp = [h["sparsity_term"] for h in res["history"]]
+    check(all(0.0 <= v <= 1.0 for v in sp), f"E1 sparsity terms {sp}")
+    print(f"E1 bottleneck zero fraction per call: {sp}", flush=True)
+    # (c) gb1.db1.config: B1/B1, 66 px, bs512, 8 calls
+    one_epoch("improved_sampler B1/B1 66x66 f32 bs512", "b1",
+              ["@" + os.path.join(CONFIGS, "gb1.db1.config"),
+               *synthetic(66, 512)], 512, 8)
+    # (d) experimental.config through python -m hemx_torch.experimental:
+    # bs64, an estimator epoch then a sampler epoch (the published 30 and
+    # 10 epochs cut to 1 each); both phases gather image and depth
+    batch = 64
+    res = one_epoch("experimental (estimator, then composed E1 sampler) "
+                    f"64x64 bs{batch}", "experimental",
+                    ["@" + os.path.join(CONFIGS, "experimental.config"),
+                     *synthetic(64, batch), "--estimator_epochs", "1"],
+                    batch, count // batch, entry=experimental.run, runs=2)
+    est = res["estimator"]
+    check(est["train_state"].step == count // batch
+          and all(math.isfinite(h["m_loss"]) for h in est["history"]),
+          f"experimental: estimator step {est['train_state'].step}")
+    check(res["args"].lr == 1e-4, f"experimental: sampler lr {res['args'].lr}")
+    secs = sorted(h["seconds"] for h in est["history"][1:])
+    print(f"experimental phase 1 (mean_depth_estimator) on {card}: "
+          f"{len(est['history'])} calls, median call "
+          f"{statistics.median(secs):.4f} s, m_loss "
+          f"{est['history'][0]['m_loss']:.4f} -> "
+          f"{est['history'][-1]['m_loss']:.4f}", flush=True)
+    # (e) the evaluation tools on phase 11's paper_cgan run
+    K.reset_launches()
+    t0 = time.perf_counter()
+    report = paper_metrics.run(["--dir", cgan_dir, "--device", str(dev)])
+    metrics_s = time.perf_counter() - t0
+    n = K.LAUNCHES["gather_u8_normalize"]
+    want = 2 * (count // 256 + 2 * (eval_count // 256))
+    check(n == want, f"paper_metrics: input kernel launched {n}, "
+                     f"expected {want}")
+    check(set(report) == {"train", "validate", "test"} and all(
+        math.isfinite(v) for split in report.values()
+        for variant in split.values() for v in variant.values()),
+        f"paper_metrics: report {report}")
+    launches["paper_metrics"] = n
+    print(f"paper_metrics on {card}: {count + 2 * eval_count} patches over 3 "
+          f"splits in {metrics_s:.2f} s; y_hat linear_rmse (test) "
+          f"{report['test']['y_hat']['linear_rmse']:.4f}; {n} input-kernel "
+          f"launches (expected {want}: one per uint8 key and batch)",
+          flush=True)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    full = paper_fullimage.run(["--dir", cgan_dir, "--device", str(dev),
+                                "--scene_shape", "240", "320", "3",
+                                "--strides", "8", "4", "2"])
+    n = K.LAUNCHES["gather_u8_normalize"]
+    check(n == 0, f"paper_fullimage: {n} kernel launches (host-normalized)")
+    check(sorted(full["rmse"]) == ["2", "4", "8"] and all(
+        math.isfinite(v["mean"]) for v in full["rmse"].values()),
+        f"paper_fullimage: {full['rmse']}")
+    launches["paper_fullimage"] = n
+    print(f"paper_fullimage on {card}: 8 scenes of 240x320, strides 8 4 2: "
+          f"{full['patches']} patches in {full['seconds']:.2f} s of "
+          f"prediction, {full['patches'] / full['seconds']:.1f} patches/s "
+          f"(host slicing and H2D included), {time.perf_counter() - t0:.1f} "
+          f"s in all; mean rmse per stride "
+          + ", ".join(f"{k}: {v['mean']:.4f}" for k, v in
+                      sorted(full["rmse"].items())), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1410,12 +1755,21 @@ def main() -> int:
         launches_thesis = phase_thesis(
             torch, dev, card, os.path.join(workdir, "thesis"),
             os.path.join(data_dir, "nyu_raw"), os.path.join(data_dir, "store"))
+        print("== phase 12: card vs cpu, improved_sampler, the estimator and "
+              "the experimental sampler", flush=True)
+        phase_slice_card_vs_cpu(torch, dev)
+        print("== phase 13: the second generation at full width through its "
+              "entry points", flush=True)
+        launches_slice = phase_slice(
+            torch, dev, card, os.path.join(workdir, "slice"),
+            os.path.join(workdir, "thesis", "cgan"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     by_phase = {"phase4_iwgan_f32": launches, "phase6_iwgan_bf16": launches_bf16,
                 **{f"phase8_{k}_bf16": v for k, v in launches_zoo.items()},
                 **{f"phase9_{k}": v for k, v in launches_data.items()},
-                **{f"phase11_{k}": v for k, v in launches_thesis.items()}}
+                **{f"phase11_{k}": v for k, v in launches_thesis.items()},
+                **{f"phase13_{k}": v for k, v in launches_slice.items()}}
     print(json.dumps({"kernels": [{
         "name": "gather_u8_normalize", "route": "triton",
         "source": "hemx_torch/ops/input_kernels.py",

@@ -1,7 +1,12 @@
 """Command-line flags of the port (counterpart of ``hemx.config``).
 
 Every flag the port reads has ``hemx.config``'s name and default (pinned by
-``tests/test_torch_cli.py``); ``--device`` is new. ``--buffer_size``,
+``tests/test_torch_cli.py``); ``--device`` is new. A model's own flags
+(``--g_arch``, ``--m_arch``, ``--estimator_epochs``, ...) come from its
+plugin's ``arguments()``, as in ``hemx``. ``@FILE`` (or ``--config FILE``)
+reads flags from one of hemx's config files (``key value`` lines, ``#``
+comments, e.g. ``examples/improved_sampler/a1.config``), expanded in place
+so later flags override it. ``--buffer_size``,
 ``--cache_dir`` and ``--n_threads`` are accepted and unread, as in
 ``hemx``. Parsing is ``hemx``'s
 three phases — general flags, then the dataset's, then the model's — and
@@ -20,11 +25,25 @@ import sys
 import uuid
 
 
+class ConfigFileParser(argparse.ArgumentParser):
+    """A parser whose ``@``-files hold ``key value`` lines and ``#``
+    comments (``hemx.config.CustomArgumentParser``)."""
+
+    def convert_arg_line_to_args(self, arg_line):
+        line = arg_line.split("#", 1)[0].strip()
+        if not line:
+            return []
+        parts = line.split()
+        if not parts[0].startswith("-"):
+            parts[0] = "--" + parts[0]
+        return parts
+
+
 def build_base_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(
+    parser = ConfigFileParser(
         description="hemx_torch training harness (PyTorch/CUDA port of hemx).",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
-        conflict_handler="resolve")
+        fromfile_prefix_chars="@", conflict_handler="resolve")
     misc = parser.add_argument_group("Miscellaneous")
     misc.add_argument("--seed", type=int, default=None,
                       help="RNG seed; randomized each run when unset.")
@@ -132,6 +151,9 @@ def parse_args(argv=None):
     from hemx_torch.models.plugin import get_model
 
     argv = list(sys.argv[1:] if argv is None else argv)
+    while "--config" in argv:
+        i = argv.index("--config")
+        argv[i:i + 2] = ["@" + argv[i + 1]]
     parser = build_base_parser()
     args, leftover = parser.parse_known_args(argv)
     for cls in (get_dataset(args.dataset), get_model(args.model)):
@@ -160,6 +182,15 @@ def init_working_dir(args) -> str:
         json.dump({k: _jsonable(v) for k, v in vars(args).items()
                    if not k.startswith("_")}, f, indent=2, sort_keys=True)
     return args.dir
+
+
+def load_options(path: str) -> dict:
+    """A run's ``options.json`` as a dict (the evaluation tools rebuild the
+    model from it). It may come from hemx, whose file also holds keys the
+    port does not read (``n_devices``, ``deconv_impl``, ...): they are kept
+    and ignored."""
+    with open(path) as f:
+        return json.load(f)
 
 
 def dump_options(args, path: str) -> None:

@@ -10,7 +10,10 @@ layout change for kernels:
   permute (no flip);
 * dense ``w``: ``[in, out]`` -> ``(out, in)``, a transpose;
 * a depth net's flat ``{name}_w`` (``hemx_torch.models.depth_nets``, the
-  names in its ``kernels``): a conv or deconv kernel, the same permute.
+  names in its ``kernels``; improved_sampler's ``e*``, ``d*``, ``final``,
+  ``hx*``, ``hy*``, ``h*`` too): a conv or deconv kernel, the same
+  permute. (The mean-depth estimator's ``l1``-``l8`` are conv and dense
+  modules.)
 
 Trees built from modules keep hemx's empty subtrees: a layer with no
 parameters (``flatten``, ``unflatten``) or no BN state is ``{}``, in the

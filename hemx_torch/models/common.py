@@ -30,7 +30,7 @@ import torch.nn as nn
 from hemx_torch.convert import jax_view
 
 # noise streams drawn at one (key, step)
-TRAIN, EVAL, SAMPLE, REPORT = range(4)
+TRAIN, EVAL, SAMPLE, REPORT, DIAG = range(5)
 
 
 @dataclasses.dataclass

@@ -6,13 +6,15 @@ Skeleton: ``prepare`` splits a batch into G's input, the target depth
 depth) pairs -> sigmoid cross-entropy (``gan``) or Wasserstein (``wgan``)
 losses -> alternating D and G updates. Subclasses supply the networks
 (:meth:`_build`), ``prepare``, ``transform_g``, ``d_forward``, the
-optimizers and the reported ``extra_losses``.
+optimizers, the generator's ``extra_g_loss`` (added to its loss, as
+hemx's) and the reported ``extra_losses``.
 
 Step semantics, as in hemx:
 
 * a train call runs ``n_disc_train`` critic substeps, then one generator
   substep; each pulls a fresh batch and draws fresh noise; ``step`` goes up
-  by one per call;
+  by one per call (a subclass may plan its substeps otherwise:
+  :meth:`substeps`);
 * critic substep: G runs once (no gradient; its BN stats discarded); D
   scores the real pair, then the fake pair, the fake pass's BN moving stats
   starting from the real pass's, and D keeps them; D updates, then under
@@ -27,9 +29,10 @@ Step semantics, as in hemx:
 
 Optimizer state is ``{"g", "d"}``. Noise: a generator that needs it
 (``noise_spec``) gets a uniform draw per substep from the call's seeded
-generator, or the seam's ``noise`` (a list of ``{"z": NCHW tensor}`` per
-substep; ``{}`` for a net without noise). The depth nets record no
-intermediates, so ``capture_activations`` is empty, as hemx's is.
+generator, or the seam's ``noise`` (a list of ``{"z": NCHW tensor}``, one
+per substep, ``n_substeps()`` of them; ``{}`` for a net without noise).
+The depth nets record no intermediates, so ``capture_activations`` is
+empty, as hemx's is.
 """
 
 from __future__ import annotations
@@ -87,6 +90,11 @@ class ConditionalGanBase(ModelPlugin):
     def transform_g(self, g, prep: dict):
         return g
 
+    def extra_g_loss(self, g, prep: dict):
+        """(term added to G's loss, or None; {name: metric}) — the
+        differentiable extras of hemx's ``extra_g_loss``."""
+        return None, {}
+
     def extra_losses(self, g, prep: dict) -> dict:
         return {}
 
@@ -114,6 +122,23 @@ class ConditionalGanBase(ModelPlugin):
 
     def batches_per_train_call(self) -> int:
         return self.n_disc_train + 1
+
+    def n_substeps(self) -> int:
+        """Substeps of one train call, each with its own noise draw."""
+        return self.n_disc_train + 1
+
+    def substeps(self, stream):
+        """``(batch, step function)`` of each substep of a train call, in
+        order: ``n_disc_train`` critic substeps then the generator's, each
+        on a fresh batch."""
+        for _ in range(self.n_disc_train):
+            yield next(stream), self.d_step
+        yield next(stream), self.g_step
+
+    def _g_total(self, g_gan, g, prep):
+        """(G's loss: the GAN term plus ``extra_g_loss``, its metrics)."""
+        extra, metrics = self.extra_g_loss(g, prep)
+        return (g_gan if extra is None else g_gan + extra), metrics
 
     def _g_loss_from_fake(self, fake):
         if self.training_version == "wgan":
@@ -170,7 +195,8 @@ class ConditionalGanBase(ModelPlugin):
         g, g_stats = self.g_forward(G, prep, noise)
         fake, _ = self.d_forward(D, prep, g)
         g_gan = self._g_loss_from_fake(fake)
-        grads = torch.autograd.grad(g_gan, list(G.parameters()))
+        g_loss, extra_g = self._g_total(g_gan, g, prep)
+        grads = torch.autograd.grad(g_loss, list(G.parameters()))
         with torch.no_grad():
             extra = self.extra_losses(g, prep)
         ts.opt["g"].step(grads)
@@ -178,28 +204,27 @@ class ConditionalGanBase(ModelPlugin):
             clip_params(G.parameters(), self.clip_value)
         commit_moving_stats(G, g_stats)
         ts.step += 1
-        return self._flags({"g_loss": g_gan.detach(), "g_gan": g_gan.detach(),
-                            "g_grad_norm": common.grad_norm(grads), **extra},
-                           "g", G, grads)
+        return self._flags({"g_loss": g_loss.detach(), "g_gan": g_gan.detach(),
+                            "g_grad_norm": common.grad_norm(grads),
+                            **{k: v.detach() for k, v in extra_g.items()},
+                            **extra}, "g", G, grads)
 
     def train(self, ts: common.TrainState, stream, noise=None):
-        """One train call; ``noise``: optional list of
-        ``batches_per_train_call()`` dicts replacing the call's draws (the
-        equality tests' seam). Returns ``(ts, metrics)``, the last critic
-        substep's and the generator's metrics as 0-d device tensors."""
-        n = self.batches_per_train_call()
+        """One train call; ``noise``: optional list of ``n_substeps()``
+        dicts replacing the call's draws (the equality tests' seam).
+        Returns ``(ts, metrics)``, the last critic substep's and the
+        generator's metrics as 0-d device tensors."""
+        n = self.n_substeps()
         if noise is not None and len(noise) != n:
             raise ValueError(f"noise must hold {n} substeps, got {len(noise)}")
         gen = (common.generator(ts, common.TRAIN, self.device)
                if noise is None else None)
         metrics, flags = {}, {}
-        for i in range(n):
-            batch = next(stream)
+        for i, (batch, step) in enumerate(self.substeps(stream)):
             if noise is None:  # G's input has the image's N, H and W
                 nz = draw_noise(ts.nets["generator"], gen, batch["image"])
             else:
                 nz = {k: v.to(self.device) for k, v in noise[i].items()}
-            step = self.d_step if i < n - 1 else self.g_step
             m = step(ts, batch, nz)
             flags = common.and_flags(flags, m.pop("grad_finite", {}))
             metrics.update(m)
@@ -223,7 +248,8 @@ class ConditionalGanBase(ModelPlugin):
                                                    noise))
         real, fake = self._real_fake(D, prep, g, commit=False)
         g_gan, d_loss, _, _ = self._gan_losses(real, fake)
-        return {"g_loss": g_gan, "d_loss": d_loss,
+        g_loss, extra_g = self._g_total(g_gan, g, prep)
+        return {"g_loss": g_loss, "d_loss": d_loss, **extra_g,
                 **self.extra_losses(g, prep)}
 
     @torch.no_grad()
@@ -263,8 +289,9 @@ class ConditionalGanBase(ModelPlugin):
         _, d_loss, _, _ = self._gan_losses(*self._real_fake(D, prep, g,
                                                             commit=False))
         d_grads = torch.autograd.grad(d_loss, list(D.parameters()))
-        g_loss = self._g_loss_from_fake(
-            self.d_forward(D, prep, self.g_forward(G, prep, nz)[0])[0])
+        g = self.g_forward(G, prep, nz)[0]
+        g_loss, _ = self._g_total(
+            self._g_loss_from_fake(self.d_forward(D, prep, g)[0]), g, prep)
         g_grads = torch.autograd.grad(g_loss, list(G.parameters()))
         return common.summarizable_stats(
             {**common.grads_by_path("discriminator", D, d_grads),

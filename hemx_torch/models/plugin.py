@@ -13,7 +13,9 @@ A model is constructed as ``Model(args, device)``, then:
 Ported: the BASELINE models ``cnn``, ``vae``, ``gan``, ``wgan`` and
 ``iwgan``, and the thesis depth models ``paper_cgan``, ``paper_sampler``,
 ``paper_noise``, ``paper_baseline_sampler``, ``paper_standalone``,
-``paper_baseline_standalone`` and ``sampler_gan``, each under hemx's name
+``paper_baseline_standalone`` and ``sampler_gan``, and the thesis's second
+generation ``improved_sampler``, ``mean_depth_estimator`` and
+``experimental_sampler``, each under hemx's name
 with hemx's ``arguments()``. The registry is an explicit table rather
 than ``hemx``'s package scan.
 """
@@ -40,7 +42,13 @@ _REGISTRY = {"cnn": "hemx_torch.models.cnn:CnnModel",
                  "hemx_torch.models.paper_family:PaperStandalone",
              "paper_baseline_standalone":
                  "hemx_torch.models.paper_family:PaperBaselineStandalone",
-             "sampler_gan": "hemx_torch.models.sampler_gan:SamplerGan"}
+             "sampler_gan": "hemx_torch.models.sampler_gan:SamplerGan",
+             "improved_sampler":
+                 "hemx_torch.models.improved_sampler:ImprovedSampler",
+             "mean_depth_estimator":
+                 "hemx_torch.models.mean_depth_estimator:MeanDepthEstimator",
+             "experimental_sampler":
+                 "hemx_torch.models.experimental_sampler:ExperimentalSampler"}
 
 
 # --dtype -> the compute dtype of every conv, deconv and dense
@@ -72,6 +80,12 @@ class ModelPlugin:
         gen = torch.Generator()
         gen.manual_seed(seed)
         return self._build(tuple(image_shape), gen).to(self.device)
+
+    def input_shape(self, host_batch: dict) -> tuple:
+        """(C, H, W) of the input the networks are built for: the
+        ``image`` key of a host batch (NHWC)."""
+        h, w, c = host_batch["image"].shape[1:]
+        return (c, h, w)
 
     def init_state(self, image_shape, seed: int):
         raise NotImplementedError

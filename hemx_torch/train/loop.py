@@ -131,9 +131,8 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
                "checkpoint_bytes": [],
                "materialize_s": getattr(split.source, "materialize_s", None)}
     host_batch = next(split.iter_epoch(args.batch_size, shuffle=False))
-    h, w, c = host_batch["image"].shape[1:]
     summary_batch = place_batch(host_batch, split, device, model.batch_keys)
-    ts = model.init_state((c, h, w), args.seed)
+    ts = model.init_state(model.input_shape(host_batch), args.seed)
 
     def save(epoch: int) -> None:
         t0 = time.perf_counter()

@@ -9,7 +9,8 @@
   ``--device cuda`` without a GPU fails; a model not ported yet exits 2.
 * Every flag the port shares with hemx has hemx.config's name and default
   (the data flags included), and every ported model and dataset hemx's
-  name and ``arguments()``.
+  name and ``arguments()``; hemx's config files (``@FILE``, ``--config
+  FILE``) resolve to hemx's values.
 """
 
 import json
@@ -60,11 +61,17 @@ def test_port_does_not_load_jax():
             "import hemx_torch.paper_train, hemx_torch.metrics.eigen\n"
             "import hemx_torch.models.paper_cgan, hemx_torch.models.sampler_gan\n"
             "import hemx_torch.models.paper_family, hemx_torch.ops.images\n"
+            "import hemx_torch.models.improved_sampler\n"
+            "import hemx_torch.models.mean_depth_estimator\n"
+            "import hemx_torch.models.experimental_sampler\n"
+            "import hemx_torch.experimental, hemx_torch.paper_metrics\n"
+            "import hemx_torch.paper_fullimage\n"
             "from hemx_torch.data.plugin import available_datasets\n"
             "assert len(available_datasets()) == 5  # imports every plugin\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'hemx',\n"
-            "        'PIL', 'matplotlib', 'paper_train')]\n"
+            "        'PIL', 'matplotlib', 'paper_train', 'experimental',\n"
+            "        'paper_metrics', 'paper_fullimage')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     r = _run(["-c", code])
@@ -73,10 +80,11 @@ def test_port_does_not_load_jax():
 
 def test_sources_import_no_jax_or_hemx():
     """No source of the port, nor chip_smoke.py, imports JAX, flax, optax,
-    msgpack, matplotlib, hemx or the root paper_train.py."""
+    msgpack, matplotlib, hemx or the root paper_train.py, experimental.py,
+    paper_metrics.py and paper_fullimage.py."""
     pat = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack|matplotlib|hemx"
-        r"|paper_train)\b", re.M)
+        r"|paper_train|experimental|paper_metrics|paper_fullimage)\b", re.M)
     for path in (REPO / "hemx_torch").rglob("*.py"):
         assert not pat.search(path.read_text()), path
     assert not pat.search((REPO / "chip_smoke.py").read_text())
@@ -108,7 +116,8 @@ def test_cli_unknown_model_exits_2(capsys):
     from hemx_torch import cli
     assert cli.main(["--model", "pix2pix", "--dataset", "synthetic",
                      "--device", "cpu"]) == 2
-    assert ("['cnn', 'gan', 'iwgan', 'paper_baseline_sampler', "
+    assert ("['cnn', 'experimental_sampler', 'gan', 'improved_sampler', "
+            "'iwgan', 'mean_depth_estimator', 'paper_baseline_sampler', "
             "'paper_baseline_standalone', 'paper_cgan', 'paper_noise', "
             "'paper_sampler', 'paper_standalone', 'sampler_gan', 'vae', "
             "'wgan']") in capsys.readouterr().err
@@ -185,3 +194,23 @@ def test_cli_unported_dataset_exits_1(capsys):
     from hemx_torch import cli
     assert cli.main(["--dataset", "coco", "--device", "cpu"]) == 1
     assert "ROADMAP, queue 1: celeb and coco" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("config", ["a1", "ff.rmse", "experimental",
+                                    "meandepth.e1"])
+def test_config_files_parse_as_hemx(config, tmp_path):
+    """``@FILE`` and ``--config FILE`` read hemx's config files (``key
+    value`` lines, ``#`` comments) to hemx's values, and flags after the
+    file override it."""
+    from hemx.config import parse_args as hemx_parse
+    from hemx_torch.config import parse_args
+    path = str(REPO / "examples" / "improved_sampler" / f"{config}.config")
+    tail = ["--dataset", "synthetic", "--batch_size", "4", "--seed", "1",
+            "--dir", str(tmp_path)]
+    want = vars(hemx_parse(["@" + path] + tail))
+    got = vars(parse_args(["--config", path] + tail))
+    shared = (set(got) & set(want)) - {"_negatable"}
+    assert {"model", "optimizer", "lr", "beta1", "epochs"} <= shared
+    for k in shared:
+        assert got[k] == want[k], k
+    assert got["batch_size"] == 4

@@ -107,12 +107,12 @@ DISCS = {
 }
 
 
-def _close(got, want, what=""):
+def _close(got, want, what="", tol=1e-9):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, what
     err = np.abs(got - want).max() if want.size else 0.0
-    assert err <= 1e-9 * np.abs(want).max() + 1e-12, (what, err,
-                                                      np.abs(want).max())
+    assert err <= tol * np.abs(want).max() + 1e-12, (what, err,
+                                                     np.abs(want).max())
 
 
 def _bn_biases(net) -> set:
@@ -122,7 +122,7 @@ def _bn_biases(net) -> set:
 
 
 def _compare(hemx_layer, params, state, h_inputs, ctx_rng, net, t_inputs,
-             t_kwargs, out_shape):
+             t_kwargs, out_shape, tol=1e-9, compiler_options=None):
     rng = np.random.default_rng(3)
     ct = 0.1 * rng.standard_normal(out_shape)
     params, state = _f64(params), _f64(state)
@@ -132,8 +132,10 @@ def _compare(hemx_layer, params, state, h_inputs, ctx_rng, net, t_inputs,
                                 Ctx(training=True, rng=ctx_rng))
         return jnp.sum(y * ct), (y, s)
 
-    (_, (y, new_state)), (gp, gx) = jax.value_and_grad(
-        loss, argnums=(0, 1), has_aux=True)(params, h_inputs)
+    grad = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)
+    if compiler_options is not None:  # one program instead of eager ops
+        grad = jax.jit(grad, compiler_options=compiler_options)
+    (_, (y, new_state)), (gp, gx) = grad(params, h_inputs)
 
     # hemx's float32 draws are exact in float32, so the load loses nothing;
     # PyTorch's CPU float64 convolutions take contiguous tensors
@@ -144,9 +146,9 @@ def _compare(hemx_layer, params, state, h_inputs, ctx_rng, net, t_inputs,
                     else tuple(xs), **t_kwargs.get("kw", {}))
     (yt * _nchw(ct)).sum().backward()
 
-    _close(_nhwc(yt), y, "output")
+    _close(_nhwc(yt), y, "output", tol)
     for xt, g in zip(xs, gx):
-        _close(_nhwc(xt.grad), g, "input gradient")
+        _close(_nhwc(xt.grad), g, "input gradient", tol)
     want = convert.flatten_tree(jax.device_get(gp))
     got = {tuple(n.split(".")): convert.tensor_to_jax(net, n, p.grad)
            for n, p in net.named_parameters()}
@@ -158,7 +160,7 @@ def _compare(hemx_layer, params, state, h_inputs, ctx_rng, net, t_inputs,
             assert np.abs(got[k]).max() <= 1e-3 * scale, k
             assert np.abs(want[k]).max() <= 1e-3 * scale, k
             continue
-        _close(got[k], want[k], k)
+        _close(got[k], want[k], k, tol)
     from hemx_torch.ops.layers import commit_moving_stats
     commit_moving_stats(net, stats)
     _, got_state = convert.to_jax(net)
@@ -166,7 +168,7 @@ def _compare(hemx_layer, params, state, h_inputs, ctx_rng, net, t_inputs,
     want_s = convert.flatten_tree(jax.device_get(new_state))
     assert sorted(got_s) == sorted(want_s)
     for k in want_s:
-        _close(got_s[k], want_s[k], k)
+        _close(got_s[k], want_s[k], k, tol)
 
 
 @pytest.mark.parametrize("case", sorted(GENS))

@@ -124,28 +124,34 @@ def image_tags(logdir) -> set:
 
 
 def hemx_reference(name, tmp, *, batch=2, conditional=True,
-                   checkpoint=False, **overrides):
+                   checkpoint=False, hw=HW, extra_keys=(), summary_hook=None,
+                   summaries=True, **overrides):
     """One run of hemx's model ``name``: start state, eval losses, predict,
     sample, summaries, and the state and metrics after one train call, all
     from batches drawn from one seed; with ``checkpoint``, hemx's
-    checkpoint of the state after the call (≈ 240 MB at full width)."""
+    checkpoint of the state after the call (≈ 240 MB at full width).
+    ``hw``: the input size; ``extra_keys``: one-channel [0, 1) batch keys
+    beside image and depth; ``summary_hook(model, ts)`` runs just before
+    hemx writes its summaries, which ``summaries=False`` leaves out."""
     from hemx.models.plugin import get_model
     from hemx.parallel.dp import shard_batch
     from hemx.parallel.mesh import make_mesh
     from hemx.summaries.events import EventsWriter
     from hemx.train.checkpoint import CheckpointManager
-    args = make_args(model=name, batch_size=batch, synthetic_shape=[HW, HW, 3],
+    args = make_args(model=name, batch_size=batch, synthetic_shape=[hw, hw, 3],
                      **overrides)
     mesh = make_mesh(1)
     rng = np.random.default_rng(5)
     with xla_opt0():
         model = get_model(name)(args, mesh)
         n = model.batches_per_train_call() if conditional else 1
-        batches = [{"image": rng.random((batch, HW, HW, 3), dtype=np.float32),
-                    "depth": rng.random((batch, HW, HW, 1), dtype=np.float32)}
+        batches = [{"image": rng.random((batch, hw, hw, 3), dtype=np.float32),
+                    "depth": rng.random((batch, hw, hw, 1), dtype=np.float32),
+                    **{k: rng.random((batch, hw, hw, 1), dtype=np.float32)
+                       for k in extra_keys}}
                    for _ in range(n)]
         ts = model.init_state(jax.random.PRNGKey(args.seed), batches[0])
-        out = {"args": args, "batches": batches, "n": n,
+        out = {"args": args, "batches": batches, "n": n, "hw": hw,
                "start": jax.device_get(ts)}
         b0 = shard_batch(batches[0], mesh)
         out["evals"] = {k: float(v) for k, v in
@@ -156,12 +162,15 @@ def hemx_reference(name, tmp, *, batch=2, conditional=True,
             g_s, prep_s = model._jit_sample(ts, b0,
                                             jax.random.fold_in(ts["rng"], 0))
             out["sample"] = (np.asarray(g_s), jax.device_get(prep_s))
-        model.mean_image = mean_image()
-        w = EventsWriter(str(tmp / "hemx_events"))
-        model.write_summaries(w, 0, ts, b0)
-        w.close()
-        out["scalars"] = scalars(tmp / "hemx_events")
-        out["images"] = image_tags(tmp / "hemx_events")
+        if summaries:
+            model.mean_image = mean_image()
+            if summary_hook is not None:
+                summary_hook(model, ts)
+            w = EventsWriter(str(tmp / "hemx_events"))
+            model.write_summaries(w, 0, ts, b0)
+            w.close()
+            out["scalars"] = scalars(tmp / "hemx_events")
+            out["images"] = image_tags(tmp / "hemx_events")
         new_ts, metrics = model.train(
             ts, iter([shard_batch(b, mesh) for b in batches]))
         out["metrics"] = {k: float(v) for k, v in
@@ -181,7 +190,8 @@ def port_model(ref, **overrides):
     from hemx_torch.models.plugin import get_model
     args = make_args(**{**vars(ref["args"]), **overrides})
     model = get_model(args.model)(args, "cpu")
-    ts = model.init_state((3, HW, HW), args.seed)
+    hw = ref.get("hw", HW)
+    ts = model.init_state((3, hw, hw), args.seed)
     convert.load_from_jax(ts.nets, ref["start"]["params"],
                           ref["start"]["mstate"])
     return model, ts
@@ -192,10 +202,10 @@ def generator_of(ts):
         else ts.nets
 
 
-def g_noise(net, key, batch):
+def g_noise(net, key, batch, hw=HW):
     """The noise hemx's generator draws from ``key`` (its Ctx's first
     ``next_rng``: ``split(key)[1]``), NCHW, or {}."""
-    spec = net.noise_spec(batch, HW, HW)
+    spec = net.noise_spec(batch, hw, hw)
     if spec is None:
         return {}
     shape, lo, hi = spec
@@ -205,34 +215,92 @@ def g_noise(net, key, batch):
     return {"z": nchw(z)}
 
 
-def train_noise(net, key, step, n, batch):
+def train_noise(net, key, step, n, batch, hw=HW):
     """hemx's key chain for one train call: every substep splits
     ``fold_in(base, step)`` into (sub, next base); G draws from sub."""
     base = jax.numpy.asarray(key)
     out = []
     for _ in range(n):
         sub, base = jax.random.split(jax.random.fold_in(base, step))
-        out.append(g_noise(net, sub, batch))
+        out.append(g_noise(net, sub, batch, hw))
     return out
 
 
-def step_noise(net, key, step, batch):
+def step_noise(net, key, step, batch, hw=HW):
     """eval / predict / sample / grad_report: ``fold_in(key, step)``."""
     return g_noise(net, jax.random.fold_in(jax.numpy.asarray(key), step),
-                   batch)
+                   batch, hw)
+
+
+def substeps(model, ref) -> int:
+    """Noise draws of one train call: one per substep (a conditional GAN
+    may run several substeps on one batch), else one per batch."""
+    return model.n_substeps() if hasattr(model, "n_substeps") else ref["n"]
 
 
 def port_batch(b: dict) -> dict:
     return {k: nchw(v) for k, v in b.items()}
 
 
-def check_train_call(ref, *, adam_lr=None, clip=None):
+ADAM_EPS = 1e-8
+# below this gradient magnitude (100 x Adam's eps) Adam's first step,
+# lr * g / (|g| + eps), turns a rounding difference in g into one of up to
+# lr in the update
+ADAM_FLOOR = 1e-6
+
+
+def _gan_opt_prefix(k: tuple) -> tuple:
+    """Where a conditional GAN's Adam state keeps parameter ``k``'s
+    moments: its network's optimizer, the chain's first transform."""
+    return ({"generator": "g", "discriminator": "d"}[k[0]], "0"), k[1:]
+
+
+def check_adam_first_step(ref, got_params, got_opt, want_opt, skip, *,
+                          lr, b1, b2, opt_prefix=_gan_opt_prefix):
+    """Parameters after an Adam model's first train call: where both
+    sides' gradients (read from their first moments) are at least
+    ``ADAM_FLOOR``, the port's values against hemx's at ``TOL``; where
+    either is smaller, each side's update against optax's first Adam step
+    of that side's own gradient and second moment, in float64, rtol 1e-5 /
+    atol 1e-8 (a few float32 ulps of the parameters) -- the gradients
+    themselves are held to each other through the moments at ``TOL``.
+    ``opt_prefix(k)`` gives (the optimizer state's path before ``mu`` /
+    ``nu``, the parameter's path after it). Returns the parameter paths
+    checked."""
+    start, want = flat(ref["start"]["params"]), flat(ref["after"]["params"])
+    got = flat(got_params)
+    done = set()
+    for k in want:
+        if k in skip:
+            continue
+        head, tail = opt_prefix(k)
+        mu, nu = (head + (m,) + tail for m in ("mu", "nu"))
+        floor = ADAM_FLOOR * (1 - b1)  # on the first moment, (1 - b1) g
+        small = ((np.abs(want_opt[mu]) < floor)
+                 | (np.abs(got_opt[mu]) < floor))
+        np.testing.assert_allclose(got[k][~small], want[k][~small],
+                                   err_msg="/".join(k), **TOL)
+        for p, opt in ((got[k], got_opt), (want[k], want_opt)):
+            m = opt[mu][small].astype(np.float64) / (1 - b1)
+            v = opt[nu][small].astype(np.float64) / (1 - b2)
+            np.testing.assert_allclose(
+                p[small].astype(np.float64) - start[k][small],
+                -lr * m / (np.sqrt(v) + ADAM_EPS), rtol=1e-5, atol=1e-8,
+                err_msg="/".join(k))
+        done.add(k)
+    return done
+
+
+def check_train_call(ref, *, adam_lr=None, clip=None, adam=None):
     """One port train call against hemx's: metrics, step, params, BN state
-    and optimizer state. Returns the port's state after the call."""
+    and optimizer state. Returns the port's state after the call. With
+    ``adam`` (lr, b1, b2) of a model whose optimizers are both that Adam,
+    the parameters are held by :func:`check_adam_first_step`."""
     from hemx_torch import convert
     model, ts = port_model(ref)
     batch = ref["args"].batch_size
-    noise = train_noise(generator_of(ts), ts.rng, 0, ref["n"], batch)
+    noise = train_noise(generator_of(ts), ts.rng, 0, substeps(model, ref),
+                        batch, ref.get("hw", HW))
     kw = {"noise": noise} if isinstance(ts.nets, torch.nn.ModuleDict) else {}
     ts, metrics = model.train(ts, iter(port_batch(b) for b in ref["batches"]),
                               **kw)
@@ -256,15 +324,20 @@ def check_train_call(ref, *, adam_lr=None, clip=None):
                 skip.add(k)
                 for p in (got[k], after[k]):
                     assert np.abs(p - start[k]).max() <= adam_lr * 1.001, k
-    assert_trees_close(params, ref["after"]["params"], skip=skip)
-    assert_trees_close(mstate, ref["after"]["mstate"])
     got_opt = flat(convert.train_state_to_jax(ts)["opt"])
     want_opt = flat(serialization.to_state_dict(ref["after"]["opt"]))
     assert sorted(got_opt) == sorted(want_opt)
+    # the BN-fed biases' moments hold the same rounding noise: not compared
     skipped = {k[-1] for k in skip}
+    if adam is not None:
+        lr, b1, b2 = adam
+        skip |= check_adam_first_step(ref, params, got_opt, want_opt, skip,
+                                      lr=lr, b1=b1, b2=b2)
+    assert_trees_close(params, ref["after"]["params"], skip=skip)
+    assert_trees_close(mstate, ref["after"]["mstate"])
     for k in want_opt:
         if k[-1] in skipped:
-            continue  # the skipped biases' moments: the same noise
+            continue
         np.testing.assert_allclose(got_opt[k], want_opt[k],
                                    err_msg="/".join(k), **TOL)
     if clip is not None:
@@ -273,14 +346,16 @@ def check_train_call(ref, *, adam_lr=None, clip=None):
     return ts
 
 
-def check_inference(ref, grad_report=False):
+def check_inference(ref, grad_report=False, capture=()):
     """eval_losses, predict and, for the GANs, sample (noise from hemx's
     step key) against hemx's; with ``grad_report``, its names against
-    hemx's parameter paths (the base class's code, run for paper_cgan)."""
+    hemx's parameter paths (the base class's code, run for paper_cgan) and
+    the names ``capture_activations`` gives against ``capture``."""
     model, ts = port_model(ref)
     gan = isinstance(ts.nets, torch.nn.ModuleDict)
     kw = ({"noise": step_noise(generator_of(ts), ts.rng, 0,
-                               ref["args"].batch_size)} if gan else {})
+                               ref["args"].batch_size, ref.get("hw", HW))}
+          if gan else {})
     b0 = port_batch(ref["batches"][0])
     evals = model.eval_losses(ts, b0, **kw)
     assert set(evals) == set(ref["evals"])
@@ -296,24 +371,25 @@ def check_inference(ref, grad_report=False):
         stats = model.grad_report(ts, b0, **kw)
         assert set(stats) == {"/".join(k) for k in flat(ref["start"]["params"])}
         assert all(np.isfinite(float(v["mean"])) for v in stats.values())
-        assert model.capture_activations(ts, b0) == {}
+        assert set(model.capture_activations(ts, b0)) == set(capture)
     elif not gan:
         assert model.grad_report(ts, b0) is None
 
 
-def check_summaries(ref, tmp):
+def check_summaries(ref, tmp, **kw):
     """write_summaries' scalars (sampler variance, Eigen metrics vs y_hat,
-    y_0, y_mean and the sampler) and image tags against hemx's."""
+    y_0, y_mean and the sampler) and image tags against hemx's; ``kw`` go
+    to the port's write_summaries."""
     from hemx_torch.summaries.events import EventsWriter
     model, ts = port_model(ref)
     if isinstance(ts.nets, torch.nn.ModuleDict):
         # the step key's noise for predict and sample, as hemx's
         noise = step_noise(generator_of(ts), ts.rng, 0,
-                           ref["args"].batch_size)
+                           ref["args"].batch_size, ref.get("hw", HW))
         model._noise = lambda ts, stream, prep, given: noise
     model.mean_image = mean_image()
     w = EventsWriter(str(tmp / "port_events"))
-    model.write_summaries(w, 0, ts, port_batch(ref["batches"][0]))
+    model.write_summaries(w, 0, ts, port_batch(ref["batches"][0]), **kw)
     w.close()
     got = scalars(tmp / "port_events")
     assert set(got) == set(ref["scalars"])
@@ -418,8 +494,8 @@ def test_check_numerics_names_match_hemx(ref):
     want = set(grad_finite_report({"g": start["generator"],
                                    "d": start["discriminator"]}))
     model, ts = port_model(ref, check_numerics=True)
-    noise = train_noise(generator_of(ts), ts.rng, 0, ref["n"],
-                        ref["args"].batch_size)
+    noise = train_noise(generator_of(ts), ts.rng, 0, substeps(model, ref),
+                        ref["args"].batch_size, ref.get("hw", HW))
     _, metrics = model.train(ts, iter(port_batch(b) for b in ref["batches"]),
                              noise=noise)
     assert set(metrics["grad_finite"]) == want
