@@ -128,19 +128,45 @@ prints its last line):
    Each prints its median call, images/s (patches/s for (e)), its wall
    time and the input kernel's launches beside the expected count.
 
-Phase 2 also times the kernel on the thesis sets' rows (512 of 65x65x3 and
-65x65x1, 12,675 and 4,225 bytes, not 16-byte aligned; of 66x66x3 and
-66x66x1, 13,068 and 4,356 bytes; of 64x64x3 and 64x64x1), by CUDA events
-and by the device time torch.profiler records with the 50 MB L2 cache
-flushed before each launch (these gathers are short enough that an event
-pair around one launch mostly times the host's launch latency, and small
-enough to stay in L2 from one launch to the next).
+14. Card vs CPU for the rest of the zoo (f32, ``--precision highest``,
+   batch 4, phase 10's checks, sgd): ``pix2pix`` at 32x32 with
+   ``--add_l1``, with every noise site, ``--dropout 0.5`` and BN in G and
+   D, and with ``--n_disc_train 2`` (the seam carries the U-Net's noise
+   and keep masks); ``artist`` at 65x65; ``info_gan`` at 32x32; then each
+   model's own optimizer (Adam) on the card as phase 12 holds it.
+15. The rest of the zoo at full width through ``cli.run`` from hemx's
+   config files, NYUv2 (not in the repository) replaced by 1,024 / 128
+   synthetic uint8 image + depth pairs of 256x256, seed 7, made once and
+   shared by the runs: (a) ``pix2pix.config`` (bs64, Adam 1e-4 / 0.5, f32),
+   an epoch of 16 calls then ``--epochs +1`` with phase 6's checks; (b)
+   ``pix2pix/no_l1.config`` (dropout 0.5, BN in G and D), 8 calls; (c)
+   ``noise``, ``noise2`` (d1 takes 1,024 channels) and ``noise3.config``,
+   3 calls each; (d) ``baseline2.config`` (batch 1, BN in G over 1x1 maps
+   of one row), 16 calls; (e) (a) in bf16, 4 calls and +1, every conv and
+   deconv product bf16; (f) ``artist.config`` (bs32), 8 calls, then an x
+   step on the card that leaves the encoder's parameters bit for bit; (g)
+   ``info_gan`` bs32, Adam 1e-4, 6 calls. Montages of 8 examples and one
+   summary per epoch besides its end (hemx's cadence would write 17
+   summaries of four 64-image montages in a 16-call epoch). Each prints its median call, images/s, peak
+   device memory (reset per run), the input kernel's launches against
+   their formula, and one more call traced: device launches, device time
+   and busy share.
+
+Phase 2 also times the kernel, by CUDA events and by the device time
+torch.profiler records with the 50 MB L2 cache flushed before each
+launch, on shorter gathers (short enough that an event pair around one
+launch mostly times the host's launch latency, and small enough to stay
+in L2 from one launch to the next): the thesis sets' rows (512 of 65x65x3
+and 65x65x1, 12,675 and 4,225 bytes, not 16-byte aligned; of 66x66x3 and
+66x66x1, 13,068 and 4,356 bytes; of 64x64x3 and 64x64x1) and phase 15's
+(128 of 256x256x3 and 256x256x1, one pix2pix bs64 call's two batches).
 
 The line before the last is a JSON list of the kernels with their launch
-counts summed over phases 4, 6, 8, 9, 11 and 13 (each path's counts set to
-0 just before it and read just after; by phase under
-``launches_by_phase``), their phase-2 errors and times, and their bound;
-the last line is ``{"ok": true, "device": {...}}``.
+counts summed over phases 4, 6, 8, 9, 11, 13 and 15 (each path's counts
+set to 0 just before it and read just after; by phase under
+``launches_by_phase``), their phase-2 errors and times (the short gathers
+under ``cold_rows``), and their bound; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -298,19 +324,25 @@ def phase_kernel(torch, dev) -> dict:
               flush=True)
         check(err <= 1e-6, f"kernel disagrees with plain version: {err}")
         max_err = max(max_err, err)
-    thesis = []
+    cold = []
     l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     flush = l2_flush.zero_
-    # the thesis sets' image and depth rows: 65x65 (paper models, A*),
-    # 66x66 (B1, C1) and 64x64 (B2, D1, E1, the experimental sampler)
-    for side, c in ((65, 3), (65, 1), (66, 3), (66, 1), (64, 3), (64, 1)):
-        d65 = torch.randint(0, 256, (4096, side, side, c), dtype=torch.uint8,
+    # (side, channels, dataset rows, gathered rows): the thesis sets' image
+    # and depth rows, 65x65 (paper models, A*), 66x66 (B1, C1) and 64x64
+    # (B2, D1, E1, the experimental sampler), 512 of 4,096; pix2pix's,
+    # artist's and info_gan's 256x256 rows, 128 of 1,024 (one pix2pix bs64
+    # call's two batches)
+    for side, c, n_ds, rows in ((65, 3, 4096, 512), (65, 1, 4096, 512),
+                                (66, 3, 4096, 512), (66, 1, 4096, 512),
+                                (64, 3, 4096, 512), (64, 1, 4096, 512),
+                                (256, 3, 1024, 128), (256, 1, 1024, 128)):
+        d65 = torch.randint(0, 256, (n_ds, side, side, c), dtype=torch.uint8,
                             device=dev, generator=g)
-        i65 = torch.randperm(4096, device=dev, generator=g)[:512]
+        i65 = torch.randperm(n_ds, device=dev, generator=g)[:rows]
         a = K.gather_u8_normalize(d65, i65, 0.0, 1.0)
         b = K.gather_u8_normalize_ref(d65, i65, 0.0, 1.0)
         torch.cuda.synchronize()
-        check(a.shape == (512, c, side, side)
+        check(a.shape == (rows, c, side, side)
               and a.is_contiguous(memory_format=torch.channels_last),
               f"kernel output {tuple(a.shape)} on {side}x{side}x{c} rows")
         err = (a - b).abs().max().item()
@@ -327,14 +359,14 @@ def phase_kernel(torch, dev) -> dict:
                  torch, lambda: K.gather_u8_normalize_ref(d65, i65, 0.0, 1.0),
                  flush=flush)}
         row = side * side * c
-        moved = 512 * (row * 5 + i65.element_size())
+        moved = rows * (row * 5 + i65.element_size())
         bound = moved / HBM_BYTES_PER_S * 1e3
-        thesis.append({"rows": f"512x{side}x{side}x{c}", "row_bytes": row,
-                       "max_abs_err": err, "ms": t["kernel"],
-                       "plain_ms": t["plain"], "device_ms": d["kernel"],
-                       "plain_device_ms": d["plain"], "bound_ms": bound})
+        cold.append({"rows": f"{rows}x{side}x{side}x{c}", "row_bytes": row,
+                     "max_abs_err": err, "ms": t["kernel"],
+                     "plain_ms": t["plain"], "device_ms": d["kernel"],
+                     "plain_device_ms": d["plain"], "bound_ms": bound})
         aligned = "" if row % 16 == 0 else ", not 16-byte aligned"
-        print(f"gather_u8_normalize 512x{side}x{side}x{c} ({row} B rows"
+        print(f"gather_u8_normalize {rows}x{side}x{side}x{c} ({row} B rows"
               f"{aligned}): max abs diff {err:.3g}; kernel "
               f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms (median of "
               f"25 CUDA-event timed launches, launch latency included); "
@@ -360,7 +392,7 @@ def phase_kernel(torch, dev) -> dict:
           f"call computes gather + convert + scale", flush=True)
     return {"max_abs_err": max_err, "ms": ms["kernel"],
             "plain_ms": ms["plain"], "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None, "thesis_rows": thesis}
+            "bound_by": "bytes", "library_ms": None, "cold_rows": cold}
 
 
 def _close(a, b, rtol, atol, what):
@@ -607,13 +639,14 @@ def phase_full_width(torch, dev, card: str, workdir: str, *,
 
 
 def expected_summary_steps(batches: int, start_epoch: int, epochs: int,
-                           start_step: int) -> set:
+                           start_step: int, freq: int = 0) -> set:
     """Steps of the train summaries with losses: hemx's cadence, 10 per
-    epoch for the first 3 epochs, then 3, plus each epoch's end
+    epoch for the first 3 epochs, then 3 (``freq`` per epoch when
+    ``--summary_freq`` sets it), plus each epoch's end
     (``hemx/train/loop.py:186-234``)."""
     steps, step = set(), start_step
     for epoch in range(start_epoch, start_epoch + epochs):
-        cadence = max(batches // (10 if epoch < 3 else 3), 1)
+        cadence = max(batches // (freq or (10 if epoch < 3 else 3)), 1)
         for i in range(batches):
             step += 1
             if i % cadence == 0:
@@ -634,7 +667,7 @@ def _trees_equal(a: dict, b: dict) -> bool:
 def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
                    group: int, count: int, eval_count: int,
                    batch: int, *, run=None, dtype: str = "bfloat16",
-                   keys: int = 1, eval_tags=None) -> dict:
+                   keys: int = 1, eval_tags=None, bn_input=None) -> dict:
     """``run(argv)`` (default ``cli.run``) for one epoch of ``calls`` calls
     with ``--max_to_keep 2``, then ``--epochs +1`` on the same ``--dir``,
     with the input kernel's counts set to 0 just before and read just
@@ -645,8 +678,10 @@ def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
     (validation writes ``eval_tags``, default the train losses but
     ``grad_norm``); in ``dtype`` on the card: every conv and deconv product
     (and with it each layer without BN's output) and every BN input; the
-    launch count, one per ``keys`` uint8 keys. Returns both runs' results
-    and the launches."""
+    launch count, one per ``keys`` uint8 keys. ``bn_input``: the BN
+    inputs' dtype where it is not ``dtype`` (pix2pix's nets add the f32
+    bias to a bf16 product uncast, as hemx's do). Returns both runs'
+    results and the launches."""
     from hemx_torch import cli, convert
     from hemx_torch.models.plugin import get_model
     from hemx_torch.ops import input_kernels as K
@@ -723,7 +758,8 @@ def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
     check(len(hist) == 2 * calls and all(
         math.isfinite(h[k]) for h in hist for k in losses),
         f"{args.model}: calls {len(hist)}, non-finite loss in {hist}")
-    want = {"train": (expected_summary_steps(calls, 0, 2, 0), losses),
+    want = {"train": (expected_summary_steps(calls, 0, 2, 0,
+                                             args.summary_freq), losses),
             "validate": ({calls, 2 * calls},
                          eval_tags or [k for k in losses if k != "grad_norm"])}
     for phase, (steps, tags) in want.items():
@@ -741,7 +777,8 @@ def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
                      isinstance(m, Conv2d) for m in ts.nets.modules())
                      else set()),
                  "conv/deconv product": {want_dtype},
-                 "batch_norm input": {want_dtype} if has_bn else set()}
+                 "batch_norm input": ({bn_input or want_dtype} if has_bn
+                                      else set())}
     check(seen == want_seen,
           f"{args.model}: compute dtypes on the card: {seen}, expected "
           f"{want_seen}")
@@ -1167,7 +1204,8 @@ def _seam(torch, model, ts, batches, seed: int = 1):
     """The seam noise of one train call and of a predict (drawn on the
     CPU), or (None, None) for a model without noise."""
     from hemx_torch.models.conditional import draw_noise
-    if not isinstance(ts.nets, torch.nn.ModuleDict):
+    if not (isinstance(ts.nets, torch.nn.ModuleDict)
+            and "generator" in ts.nets):  # a standalone net, artist
         return None, None
     g = torch.Generator()
     g.manual_seed(seed)
@@ -1186,13 +1224,14 @@ def _depth_call_each(torch, dev, model_name: str, batch: int, flags,
     the prediction or None)}."""
     from hemx_torch import convert
     from hemx_torch.metrics.eigen import eigen_metrics
+    from hemx_torch.models.conditional import ConditionalGanBase
     from hemx_torch.train.optimizers import Optimizer, make_transform
 
     out, noise = {}, None
     for d in ("cpu", dev):
         _, model, ts, batches = _depth_setup(torch, d, model_name, batch,
                                              flags, size, compose)
-        gan = isinstance(ts.nets, torch.nn.ModuleDict)
+        gan = isinstance(model, ConditionalGanBase)
         if noise is None:  # drawn once, on the CPU
             noise, pred_noise = _seam(torch, model, ts, batches)
         # sgd in place of the model's Adam / rmsprop, as phase 7 steps: a
@@ -1202,9 +1241,10 @@ def _depth_call_each(torch, dev, model_name: str, batch: int, flags,
         # (the models' own optimizers are held by _own_optimizer_on_card)
         sgd = make_transform(argparse.Namespace(optimizer="sgd", lr=1e-3))
         ts.opt = ({k: Optimizer(o.module, sgd) for k, o in ts.opt.items()}
-                  if gan else Optimizer(ts.opt.module, sgd))
-        ts, metrics = model.train(ts, iter(batches),
-                                  **({"noise": noise} if gan else {}))
+                  if isinstance(ts.opt, dict)
+                  else Optimizer(ts.opt.module, sgd))
+        ts, metrics = model.train(ts, iter(batches), **(
+            {"noise": noise} if noise is not None else {}))
         eig = None
         if gan:
             pred, prep = model.predict(ts, batches[0], noise=pred_noise)
@@ -1247,8 +1287,16 @@ def _own_optimizer_on_card(torch, dev, model_name: str, batch: int, flags,
     where = {id(m): n for n, m in ts.nets.named_modules()}
     cpu_nets = copy.deepcopy(ts.nets).cpu()
     before = {n: p.detach().clone() for n, p in cpu_nets.named_parameters()}
-    cpu_opts = {k: Optimizer(cpu_nets.get_submodule(where[id(o.module)]),
-                             o.tx) for k, o in opts.items()}
+
+    def twin(module):
+        """``module``'s copy in cpu_nets: a network of the state, or an
+        optimizer's own ModuleDict over several (artist, info_gan's Q)."""
+        if id(module) in where:
+            return cpu_nets.get_submodule(where[id(module)])
+        return torch.nn.ModuleDict({n: twin(c)
+                                    for n, c in module.named_children()})
+    cpu_opts = {k: Optimizer(twin(o.module), o.tx) for k, o in opts.items()}
+    full_name = {id(p): n for n, p in cpu_nets.named_parameters()}
     steps = []
     for k, o in opts.items():
         def record(grads, k=k, real=o.step):
@@ -1263,15 +1311,14 @@ def _own_optimizer_on_card(torch, dev, model_name: str, batch: int, flags,
     taken = dict.fromkeys(moved, 0)
     for k, grads in steps:
         mod = cpu_opts[k].module
-        prefix = f"{where[id(opts[k].module)]}." if where[id(opts[k].module)] \
-            else ""
         old = {n: p.detach().clone() for n, p in mod.named_parameters()}
         cpu_opts[k].step(grads)
         if wgan and (k == "d" or getattr(model, "clip_generator", True)):
             clip_params(mod.parameters(), model.clip_value)
         for n, p in mod.named_parameters():
-            moved[prefix + n] += (p.detach() - old[n]).abs().double().numpy()
-            taken[prefix + n] += 1
+            moved[full_name[id(p)]] += (p.detach()
+                                        - old[n]).abs().double().numpy()
+            taken[full_name[id(p)]] += 1
     label = f"{model_name} {' '.join(flags)}"
     worst = 0.0
     for n, p in cpu_nets.named_parameters():
@@ -1706,6 +1753,224 @@ def phase_slice(torch, dev, card: str, workdir: str, cgan_dir: str, *,
                       sorted(full["rmse"].items())), flush=True)
     return launches
 
+# phase 14: (model, batch, size, flags) on the card and the CPU, with
+# examples/pix2pix.config's optimizer for the own-optimizer check
+ZOO_OPT = ["--optimizer", "adam", "--lr", "1e-4", "--beta1", "0.5"]
+ZOO_CARD_VS_CPU = [
+    ("pix2pix", 4, 32, ["--add_l1"]),
+    ("pix2pix", 4, 32, ["--noise", "input", "latent", "end", "--dropout",
+                        "0.5", "--batch_norm_gen", "--batch_norm_disc"]),
+    ("pix2pix", 4, 32, ["--n_disc_train", "2"]),
+    ("artist", 4, 65, []),
+    ("info_gan", 4, 32, [])]
+
+
+def phase_zoo_rest_card_vs_cpu(torch, dev) -> None:
+    """Phase 10's checks for pix2pix (32 px: baseline with --add_l1; every
+    noise site, dropout 0.5 and BN in G and D; --n_disc_train 2), artist
+    (65 px) and info_gan (32 px): the same weights, batches and seam draws
+    on each device, sgd 1e-3, then each model's own optimizer (Adam) on the
+    card against the CPU's on the card's gradients."""
+    for name, batch, size, flags in ZOO_CARD_VS_CPU:
+        out = _depth_call_each(torch, dev, name, batch, flags + ZOO_OPT, size)
+        label = f"{name} {' '.join(flags)}".strip()
+        _compare_depth(torch, dev, f"{label} {size}x{size}", out, batch)
+        _own_optimizer_on_card(torch, dev, name, batch, flags + ZOO_OPT, size)
+
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples")
+
+
+def _fresh_peak(torch, dev) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _call_profile(torch, dev, res) -> dict:
+    """One more train call of a finished run under torch.profiler: its
+    device operations (kernels, copies, fills), their summed time, the
+    device's busy share of the traced call (union of their intervals over
+    the host-clock window) and that window."""
+    from torch.autograd import DeviceType
+    from hemx_torch.models.plugin import get_model
+    from hemx_torch.train.loop import _continuous_stream
+    model = get_model(res["args"].model)(res["args"], dev)
+    stream = _continuous_stream(res["pipeline"])
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train(res["train_state"], stream)
+        torch.cuda.synchronize(dev)
+        window_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"launches": len(spans),
+            "kernel_ms": sum(b - a for a, b in spans) / 1e3,
+            "traced_ms": window_us / 1e3, "busy": busy / window_us}
+
+
+def _zoo_line(label: str, card: str, res: dict, batch: int, launches: int,
+              want: int, peak: int, prof: dict) -> None:
+    s, t = res["summary"], res["timings"]
+    print(f"{label} on {card}: {s['calls']} calls, first call "
+          f"{s['first_call_s']:.4f} s, median call {s['median_call_s']:.4f} s, "
+          f"{s['images_per_s']:.1f} images/s (a call counts one batch of "
+          f"{batch}); peak device memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated, reset before the run); "
+          f"{launches} input-kernel launches (expected {want}); one more "
+          f"call traced: {prof['launches']} device launches, "
+          f"{prof['kernel_ms']:.2f} ms of device time in a "
+          f"{prof['traced_ms']:.2f} ms call, busy {100 * prof['busy']:.1f} %; "
+          f"summary writes median {statistics.median(t['summary_s']):.3f} s "
+          f"(n={len(t['summary_s'])}), checkpoint "
+          f"{t['checkpoint_bytes'][-1]} bytes saved in median "
+          f"{statistics.median(t['save_s']):.3f} s", flush=True)
+
+
+def phase_zoo_rest(torch, dev, card: str, workdir: str, *, count: int = 1024,
+                   eval_count: int = 128) -> dict:
+    """pix2pix, artist and info_gan at full width through ``cli.run``, from
+    hemx's config files with NYUv2 (not in the repository) replaced by
+    ``count`` / ``eval_count`` synthetic uint8 image + depth pairs of
+    256x256, seed 7, on the device cache; montages of 8 examples, one
+    summary per epoch besides its end (hemx's cadence writes 17 in a
+    16-call epoch). Returns the input kernel's launches of each run."""
+    from hemx_torch import cli
+    from hemx_torch.models.plugin import get_model
+    from hemx_torch.ops import input_kernels as K
+
+    from hemx_torch.config import parse_args
+    from hemx_torch.data.plugin import get_dataset_tensors
+
+    common = ["--dataset", "synthetic", "--synthetic_u8", "--synthetic_count",
+              str(count), "--synthetic_eval_count", str(eval_count),
+              "--synthetic_shape", "256", "256", "3", "--seed", "7",
+              "--device", str(dev), "--examples", "8", "--summary_freq", "1"]
+    launches = {}
+    # every run trains on these splits, made once (each run would render
+    # its 1,280 scenes of 256x256 on the host again); a run starts with
+    # none of an earlier run's device pipelines, so its peak is its own
+    splits = get_dataset_tensors(parse_args(common))
+
+    def run(argv):
+        for split in splits.values():
+            split.release_device_pipelines()
+        return cli.run(argv, splits)
+
+    def config(name):
+        return "@" + os.path.join(EXAMPLES, name)
+
+    def resumed(label, name, argv, calls, dtype, **kw):
+        d = os.path.join(workdir, name)
+        _fresh_peak(torch, dev)
+        out = run_and_resume(torch, dev, d, argv + common + ["--dir", d],
+                             calls, 2, count, eval_count, 64, run=run,
+                             dtype=dtype, keys=2,
+                             eval_tags=["g_loss", "d_loss", "l1", "rmse"], **kw)
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = 2 * 2 * run_launches(count, eval_count, 64, calls, 2)
+        prof = _call_profile(torch, dev, out["res2"])
+        for r in (out["res1"], out["res2"]):
+            _zoo_line(f"{label} (run and resume)", card, r, 64,
+                      out["launches"], want, peak, prof)
+        launches[name] = out["launches"]
+        shutil.rmtree(d, ignore_errors=True)
+        return out
+
+    def one_run(label, name, argv, batch, calls, group, keys=("g_loss",)):
+        d = os.path.join(workdir, name)
+        _fresh_peak(torch, dev)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = run(argv + common + ["--epochs", "1", "--epoch_size",
+                                   str(calls), "--max_to_keep", "1",
+                                   "--dir", d])
+        wall = time.perf_counter() - t0
+        n = K.LAUNCHES["gather_u8_normalize"]
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = 2 * run_launches(count, eval_count, batch, calls, group)
+        check(res["train_state"].step == calls,
+              f"{label}: step {res['train_state'].step}")
+        check(all(k in h and math.isfinite(h[k]) for h in res["history"]
+                  for k in keys) and all(math.isfinite(v) for h in
+                                         res["history"] for v in h.values()),
+              f"{label}: losses {res['history']}")
+        check(n == want, f"{label}: input kernel launched {n}, expected {want}")
+        prof = _call_profile(torch, dev, res)
+        _zoo_line(label, card, res, batch, n, want, peak, prof)
+        print(f"{label}: {wall:.1f} s for the whole run (summaries, "
+              f"checkpoints, validation)", flush=True)
+        launches[name] = n
+        shutil.rmtree(d, ignore_errors=True)
+        return res
+
+    # (a) pix2pix.config: bs64, Adam(1e-4, beta1 0.5), --n_disc_train
+    # 1, f32: an epoch of 16 calls, then +1 with a bit-exact resume
+    resumed("pix2pix pix2pix.config 256x256 f32 bs64", "pix2pix",
+            [config("pix2pix.config")], 16, "float32")
+    # (b) no_l1.config: dropout keep 0.5, BN in G and D
+    one_run("pix2pix no_l1.config (dropout 0.5, BN in G and D) f32 bs64",
+            "no_l1", [config("pix2pix/no_l1.config")], 64, 8, 2)
+    # (c) the three noise sites, one per config
+    for cfg in ("noise", "noise2", "noise3"):
+        res = one_run(f"pix2pix {cfg}.config f32 bs64", cfg,
+                      [config(f"pix2pix/{cfg}.config")], 64, 3, 2)
+        G = res["train_state"].nets["generator"]
+        if res["args"].noise == ["latent"]:
+            check(G.d1_w.shape[0] == 1024,
+                  f"{cfg}: d1 takes {G.d1_w.shape[0]} channels")
+            print(f"{cfg}.config: d1 takes {G.d1_w.shape[0]} input "
+                  f"channels (the bottleneck's 512 and 512 of noise)",
+                  flush=True)
+    # (d) baseline2.config: batch 1, BN in G over 1x1 maps of one row
+    one_run("pix2pix baseline2.config (batch 1, --batch_norm_gen, "
+            "--noise input) f32", "baseline2",
+            [config("pix2pix/baseline2.config")], 1, 16, 2)
+    # (e) (a) in bf16: every conv and deconv product bf16
+    resumed("pix2pix pix2pix.config 256x256 bf16 bs64", "pix2pix_bf16",
+            [config("pix2pix.config")], 4, "bfloat16",
+            bn_input=torch.float32)
+    # (f) artist.config: bs32, Adam 1e-4; the x step on the card
+    res = one_run("artist artist.config 256x256 f32 bs32", "artist",
+                  [config("artist.config")], 32, 8, 2,
+                  keys=("y_loss", "x_loss", "y_hat_rmse"))
+    ts, nets = res["train_state"], res["train_state"].nets
+    enc = {n: p.detach().clone()
+           for n, p in nets["encoder"].named_parameters()}
+    dec = {n: p.detach().clone()
+           for n, p in nets["x_decoder"].named_parameters()}
+    stats = {n: b.clone() for n, b in nets["encoder"].named_buffers()}
+    get_model("artist")(res["args"], dev).x_step(
+        ts, next(iter(res["pipeline"].epoch(0))))
+    check(all(torch.equal(p, enc[n])
+              for n, p in nets["encoder"].named_parameters()),
+          "artist: the x step moved the encoder's parameters")
+    check(all(not torch.equal(p, dec[n])
+              for n, p in nets["x_decoder"].named_parameters()
+              if n.endswith("_w")),
+          "artist: the x step left an x-decoder kernel")
+    check(any(not torch.equal(b, stats[n])
+              for n, b in nets["encoder"].named_buffers()
+              if n.endswith("mean")),
+          "artist: the x step left the encoder's BN stats")
+    print("artist: an x step on the card leaves the encoder's parameters "
+          "bit for bit, moves every x-decoder kernel and the encoder's "
+          "BN moving stats", flush=True)
+    # (g) info_gan at 256 px, bs32, Adam 1e-4
+    one_run("info_gan 256x256 f32 bs32", "info_gan",
+            ["--model", "info_gan", "--optimizer", "adam", "--lr", "1e-4",
+             "--batch_size", "32"], 32, 6, 3,
+            keys=("d_loss", "g_loss", "q_loss"))
+    return launches
+
 
 def main() -> int:
     import torch
@@ -1720,62 +1985,74 @@ def main() -> int:
         return 1
     dev = torch.device("cuda:0")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    marks = [time.perf_counter()]
+
+    def stage(title: str) -> None:
+        now = time.perf_counter()
+        print(f"== {title} (the previous phase took {now - marks[-1]:.1f} s)",
+              flush=True)
+        marks.append(now)
     try:
-        print("== phase 1: card", flush=True)
+        stage("phase 1: card")
         card = phase_card(torch)
-        print("== phase 2: kernel vs plain", flush=True)
+        stage("phase 2: kernel vs plain")
         kern = phase_kernel(torch, dev)
-        print("== phase 3: card vs cpu, small size", flush=True)
+        stage("phase 3: card vs cpu, small size")
         phase_card_vs_cpu(torch, dev)
-        print("== phase 4: the slice at full width", flush=True)
+        stage("phase 4: the slice at full width")
         launches = phase_full_width(torch, dev, card,
                                     os.path.join(workdir, "f32"))
-        print("== phase 5: card vs cpu, bf16 + rmsprop, small size",
-              flush=True)
+        stage("phase 5: card vs cpu, bf16 + rmsprop, small size")
         phase_bf16_card_vs_cpu(torch, dev)
-        print("== phase 6: the whole bf16 run at full width, with resume",
-              flush=True)
+        stage("phase 6: the whole bf16 run at full width, with resume")
         launches_bf16 = phase_bf16_run(torch, dev, card,
                                        os.path.join(workdir, "bf16"))
-        print("== phase 7: card vs cpu, gan/wgan/cnn/vae, small size",
-              flush=True)
+        stage("phase 7: card vs cpu, gan/wgan/cnn/vae, small size")
         phase_zoo_card_vs_cpu(torch, dev)
-        print("== phase 8: gan/wgan/cnn/vae at full width in bf16, with "
-              "resume", flush=True)
+        stage("phase 8: gan/wgan/cnn/vae at full width in bf16, with "
+              "resume")
         launches_zoo = phase_zoo_bf16_runs(torch, dev, card,
                                            os.path.join(workdir, "zoo"))
-        print("== phase 9: the data layer at full width", flush=True)
+        stage("phase 9: the data layer at full width")
         data_dir = os.path.join(workdir, "data")
         launches_data = phase_data(torch, dev, card, data_dir)
-        print("== phase 10: card vs cpu, the depth models at 65x65",
-              flush=True)
+        stage("phase 10: card vs cpu, the depth models at 65x65")
         phase_depth_card_vs_cpu(torch, dev)
-        print("== phase 11: the thesis slice at full width through "
-              "hemx_torch.paper_train", flush=True)
+        stage("phase 11: the thesis slice at full width through "
+              "hemx_torch.paper_train")
         launches_thesis = phase_thesis(
             torch, dev, card, os.path.join(workdir, "thesis"),
             os.path.join(data_dir, "nyu_raw"), os.path.join(data_dir, "store"))
-        print("== phase 12: card vs cpu, improved_sampler, the estimator and "
-              "the experimental sampler", flush=True)
+        stage("phase 12: card vs cpu, improved_sampler, the estimator and "
+              "the experimental sampler")
         phase_slice_card_vs_cpu(torch, dev)
-        print("== phase 13: the second generation at full width through its "
-              "entry points", flush=True)
+        stage("phase 13: the second generation at full width through its "
+              "entry points")
         launches_slice = phase_slice(
             torch, dev, card, os.path.join(workdir, "slice"),
             os.path.join(workdir, "thesis", "cgan"))
+        stage("phase 14: card vs cpu, pix2pix, artist and info_gan")
+        phase_zoo_rest_card_vs_cpu(torch, dev)
+        stage("phase 15: pix2pix, artist and info_gan at full width "
+              "through the CLI")
+        launches_zoo_rest = phase_zoo_rest(torch, dev, card,
+                                           os.path.join(workdir, "zoo_rest"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     by_phase = {"phase4_iwgan_f32": launches, "phase6_iwgan_bf16": launches_bf16,
                 **{f"phase8_{k}_bf16": v for k, v in launches_zoo.items()},
                 **{f"phase9_{k}": v for k, v in launches_data.items()},
                 **{f"phase11_{k}": v for k, v in launches_thesis.items()},
-                **{f"phase13_{k}": v for k, v in launches_slice.items()}}
+                **{f"phase13_{k}": v for k, v in launches_slice.items()},
+                **{f"phase15_{k}": v for k, v in launches_zoo_rest.items()}}
     print(json.dumps({"kernels": [{
         "name": "gather_u8_normalize", "route": "triton",
         "source": "hemx_torch/ops/input_kernels.py",
         "replaces": "hemx/ops/pallas_kernels.py:75",
         "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
         **kern}]}), flush=True)
+    print(f"phase 15 took {time.perf_counter() - marks[-1]:.1f} s; the script "
+          f"{time.perf_counter() - marks[0]:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,8 +8,11 @@
 ``gan``, ``wgan``, ``iwgan`` and the thesis depth models (``paper_cgan``,
 ``paper_sampler``, ``paper_noise``, ``paper_baseline_sampler``,
 ``paper_standalone``, ``paper_baseline_standalone``, ``sampler_gan``;
-``python -m hemx_torch.paper_train`` adds their dataset depth moments);
-``--dataset`` one of ``floorplan`` (the
+``python -m hemx_torch.paper_train`` adds their dataset depth moments),
+the second generation (``improved_sampler``, ``mean_depth_estimator``,
+``experimental_sampler``), ``pix2pix``, ``artist``, ``info_gan`` and the
+no-op ``test``: hemx's whole zoo. Flags may come from hemx's config files
+(``@examples/pix2pix.config``); ``--dataset`` one of ``floorplan`` (the
 default), ``mnist``, ``cifar``, ``nyuv2`` and ``synthetic``. A dataset
 whose records are not in ``--dataset_dir`` is converted from its raw files
 in ``--raw_dataset_dir`` first:
@@ -39,10 +42,12 @@ class CliError(Exception):
         self.code = code
 
 
-def build(argv=None):
+def build(argv=None, splits=None):
     """Parse the flags and build what a run trains: ``(args, device, model,
     splits)``. Checks the device, then the model (exit code 2 when it is
-    unknown), then the dataset, before any data is loaded."""
+    unknown), then the dataset, before any data is loaded. ``splits``: the
+    dataset's splits for these flags when the caller holds them already
+    (runs in one process over the same data), made here otherwise."""
     from hemx_torch.config import parse_args
     from hemx_torch.data.plugin import (get_dataset, get_dataset_tensors,
                                         unknown_dataset_message)
@@ -62,7 +67,8 @@ def build(argv=None):
         raise CliError(unknown_dataset_message(args.dataset))
     set_precision(args.precision)
     model = model_cls(args, device)
-    return args, device, model, get_dataset_tensors(args)
+    return args, device, model, (get_dataset_tensors(args) if splits is None
+                                 else splits)
 
 
 def train(args, device, model, splits) -> dict:
@@ -77,9 +83,9 @@ def train(args, device, model, splits) -> dict:
     return result
 
 
-def run(argv=None) -> dict:
+def run(argv=None, splits=None) -> dict:
     """Parse, build and train (:func:`build`, then :func:`train`)."""
-    return train(*build(argv))
+    return train(*build(argv, splits))
 
 
 def main(argv=None, run=run) -> int:

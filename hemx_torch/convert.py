@@ -11,9 +11,10 @@ layout change for kernels:
 * dense ``w``: ``[in, out]`` -> ``(out, in)``, a transpose;
 * a depth net's flat ``{name}_w`` (``hemx_torch.models.depth_nets``, the
   names in its ``kernels``; improved_sampler's ``e*``, ``d*``, ``final``,
-  ``hx*``, ``hy*``, ``h*`` too): a conv or deconv kernel, the same
-  permute. (The mean-depth estimator's ``l1``-``l8`` are conv and dense
-  modules.)
+  ``hx*``, ``hy*``, ``h*`` too; pix2pix's U-Net ``e*``, ``d*`` and
+  PatchGAN ``m*``, artist's ``e*`` and ``d*``, info_gan's ``g*``, ``d*``
+  and ``q1``): a conv or deconv kernel, the same permute. (The mean-depth
+  estimator's ``l1``-``l8`` are conv and dense modules.)
 
 Trees built from modules keep hemx's empty subtrees: a layer with no
 parameters (``flatten``, ``unflatten``) or no BN state is ``{}``, in the
@@ -23,8 +24,12 @@ hemx's pytrees and so in its checkpoints.
 The whole train state crosses as hemx's checkpoint tree (the flax state
 dict of ``{"train_state": {params, mstate, opt, step, rng}, "epoch"}``):
 ``opt`` is the optax state of the model's one optimizer (CNN, VAE), or a
-dict of them (the GANs' and the conditional GANs' ``{"g", "d"}``; the
-standalone depth models keep one), under optax's names
+dict of them (the GANs' and the conditional GANs' ``{"g", "d"}``, artist's
+``{"x", "y"}``, info_gan's ``{"g", "d", "q"}``; the standalone depth
+models keep one), under optax's names. An optimizer over several networks
+(artist's ``y`` over the encoder and the y decoder, info_gan's ``q`` over
+the predictor and the generator) keeps one subtree per network, as optax
+does for a dict of parameter trees
 (``hemx_torch.train.optimizers``), ``step`` is a 0-d int32 array, ``rng``
 the uint32[2] key, ``epoch`` an int64 (0-d array or numpy scalar).
 Loading checks that the tree

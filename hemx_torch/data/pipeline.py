@@ -133,6 +133,12 @@ class Split:
         self.name = name
         self.transform_needs_rng = transform_needs_rng
         self.device_transform = device_transform
+        self._device_pipelines = {}  # DeviceDataPipeline.maybe's memo
+
+    def release_device_pipelines(self) -> None:
+        """Forget the device pipelines memoized on this split, so their
+        device copies are freed once nothing else holds them."""
+        self._device_pipelines = {}
 
     @property
     def count(self) -> int:
@@ -344,9 +350,7 @@ class DeviceDataPipeline:
             return None
         memo_key = (global_batch, tuple(sorted(keys or ())), shuffle, seed,
                     str(torch.device(device)), max(int(group), 1))
-        memo = getattr(split, "_device_pipelines", None)
-        if memo is None:
-            memo = split._device_pipelines = {}
+        memo = split._device_pipelines
         if memo_key in memo:
             return memo[memo_key]
         try:

@@ -28,9 +28,10 @@ Step semantics, as in hemx:
   ``:243-300``).
 
 Optimizer state is ``{"g", "d"}``. Noise: a generator that needs it
-(``noise_spec``) gets a uniform draw per substep from the call's seeded
-generator, or the seam's ``noise`` (a list of ``{"z": NCHW tensor}``, one
-per substep, ``n_substeps()`` of them; ``{}`` for a net without noise).
+(``noise_draws``) gets its draws per substep from the call's seeded
+generator, or the seam's ``noise`` (a list of ``{name: NCHW tensor}``, one
+per substep, ``n_substeps()`` of them: ``{"z"}`` for a net with one draw,
+pix2pix's named draws and keep masks, ``{}`` for a net without noise).
 The depth nets record no intermediates, so ``capture_activations`` is
 empty, as hemx's is.
 """
@@ -42,6 +43,7 @@ import torch
 import torch.nn as nn
 
 from hemx_torch.models import common
+from hemx_torch.models.depth_nets import Keep
 from hemx_torch.models.plugin import ModelPlugin
 from hemx_torch.ops import losses as L
 from hemx_torch.ops.images import colorize
@@ -51,15 +53,15 @@ from hemx_torch.train.optimizers import (Optimizer, clip_params,
 
 
 def draw_noise(net: nn.Module, gen: torch.Generator, x: torch.Tensor) -> dict:
-    """``{"z": uniform noise}`` of the shape and range ``net`` needs for
-    input ``x`` (N, C, H, W), or ``{}``."""
+    """Every draw ``net.noise_draws`` names for input ``x`` (N, C, H, W),
+    in its order: uniform noise in a :class:`Uniform`'s range, a boolean
+    mask for a :class:`Keep`; ``{}`` for a net without noise."""
     n, _, h, w = x.shape
-    spec = net.noise_spec(n, h, w)
-    if spec is None:
-        return {}
-    shape, lo, hi = spec
-    u = torch.rand(shape, generator=gen, device=gen.device)
-    return {"z": u * (hi - lo) + lo}
+    out = {}
+    for name, d in net.noise_draws(n, h, w).items():
+        u = torch.rand(d.shape, generator=gen, device=gen.device)
+        out[name] = u < d.p if isinstance(d, Keep) else u * (d.hi - d.lo) + d.lo
+    return out
 
 
 def numpy_nhwc(t: torch.Tensor) -> np.ndarray:

@@ -17,13 +17,15 @@ names in ``kernels``), ``{name}_b``, and a :class:`BatchNorm` child
 0-d buffer ``_`` that hemx keeps in every net's state. ``forward`` returns
 ``(y, stats)``, stats keyed by BN child name (``hemx_torch.ops.layers``);
 each conv and deconv casts at hemx's points under a compute dtype. Noise is
-an argument (NCHW), drawn by the model: ``noise_spec(n, h, w)`` gives the
-shape and range a net needs, or None.
+an argument (NCHW), drawn by the model: ``noise_draws(n, h, w)`` names
+every draw a forward takes, in hemx's draw order (:class:`Uniform` noise,
+:class:`Keep` masks); a net with one uniform draw calls it ``z`` and takes
+it as the tensor ``noise``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -35,6 +37,20 @@ from hemx_torch.ops.layers import CL, BatchNorm, cast_in
 
 K = 5
 ENC = (64, 128, 256, 512)
+
+
+class Uniform(NamedTuple):
+    """A draw of uniform noise on [lo, hi) of an NCHW ``shape``."""
+    shape: tuple
+    lo: float
+    hi: float
+
+
+class Keep(NamedTuple):
+    """A boolean dropout keep mask of an NCHW ``shape``, each entry True
+    with probability ``p`` (``jax.random.bernoulli``)."""
+    shape: tuple
+    p: float
 
 
 def valid_out(size: int, k: int = K, s: int = 2) -> int:
@@ -101,18 +117,23 @@ class DepthNet(nn.Module):
         y = layers.deconv2d_op(x, w, (out, out), stride, padding)
         return self._post(name, y, activation, bn, stats)
 
-    def noise_spec(self, n: int, h: int, w: int):
-        """(NCHW shape, lo, hi) of the uniform noise a forward needs, or
-        None."""
-        return None
+    def noise_draws(self, n: int, h: int, w: int) -> dict:
+        """``{name: Uniform or Keep}`` of every draw a forward on an
+        (n, C, h, w) input needs, in draw order; ``{}`` without noise."""
+        return {}
 
 
-def _require(noise, spec):
-    if spec is None:
-        return
-    if noise is None or tuple(noise.shape) != tuple(spec[0]):
-        raise ValueError(f"this net needs noise of shape {spec[0]}, got "
-                         f"{None if noise is None else tuple(noise.shape)}")
+def check_draws(net: DepthNet, noise: dict, n: int, h: int, w: int) -> dict:
+    """``net.noise_draws(n, h, w)``, after checking that ``noise`` holds
+    each of them at its shape."""
+    draws = net.noise_draws(n, h, w)
+    for name, d in draws.items():
+        got = noise.get(name)
+        if got is None or tuple(got.shape) != tuple(d.shape):
+            raise ValueError(f"this net needs noise of shape {d.shape} for "
+                             f"its draw {name}, got "
+                             f"{None if got is None else tuple(got.shape)}")
+    return draws
 
 
 class ValidUnet(DepthNet):
@@ -177,12 +198,13 @@ class ValidUnet(DepthNet):
             self.add_bn("final", 1)
         self.done()
 
-    def noise_spec(self, n, h, w):
-        return ((n, 1, h, w), -1.0, 1.0) if self.noise_channel else None
+    def noise_draws(self, n, h, w):
+        return ({"z": Uniform((n, 1, h, w), -1.0, 1.0)} if self.noise_channel
+                else {})
 
     def forward(self, x, noise=None, y_bar=None):
         n, _, h, w = x.shape
-        _require(noise, self.noise_spec(n, h, w))
+        check_draws(self, {"z": noise}, n, h, w)
         sizes = enc_sizes(h)
         stats, bn = {}, self.use_bn
         if self.noise_channel:
@@ -252,7 +274,7 @@ class NoiseSiteGenerator(DepthNet):
         self.add_conv("d4", 1, 128 + (noise_layer == "d4"), 1)
         self.done()
 
-    def noise_spec(self, n, h, w):
+    def noise_draws(self, n, h, w):
         sizes = enc_sizes(h)
         site = self.noise_layer
         shape = {"x": (n, 1, h, w), "e1": (n, 1, sizes[1], sizes[1]),
@@ -261,11 +283,11 @@ class NoiseSiteGenerator(DepthNet):
                  "e4-512": (n, 512, 1, 1), "d2": (n, 1, sizes[3], sizes[3]),
                  "d3": (n, 1, sizes[2], sizes[2]),
                  "d4": (n, 1, sizes[1], sizes[1])}[site]
-        return shape, 0.0, 1.0
+        return {"z": Uniform(shape, 0.0, 1.0)}
 
     def forward(self, x, noise=None):
         n, _, h, w = x.shape
-        _require(noise, self.noise_spec(n, h, w))
+        check_draws(self, {"z": noise}, n, h, w)
         site, stats = self.noise_layer, {}
         sizes = enc_sizes(h)
         if site == "x":

@@ -40,7 +40,7 @@ import torch
 from hemx_torch.models import common
 from hemx_torch.models.conditional import (ConditionalGanBase, draw_noise,
                                            numpy_nhwc)
-from hemx_torch.models.depth_nets import DepthNet, _require
+from hemx_torch.models.depth_nets import DepthNet, Uniform, check_draws
 from hemx_torch.ops.activations import lrelu, value_fraction
 from hemx_torch.ops.images import center_crop, colorize, crop_to_bounding_box
 from hemx_torch.ops.initializers import xavier_uniform
@@ -135,12 +135,12 @@ class SpecGenerator(DepthNet):
             self.add_bn("final", 1)
         self.done()
 
-    def noise_spec(self, n, h, w):
-        return (n, 1, h, w), -1.0, 1.0
+    def noise_draws(self, n, h, w):
+        return {"z": Uniform((n, 1, h, w), -1.0, 1.0)}
 
     def forward(self, x, noise=None, bottleneck: bool = False):
         n, _, h, w = x.shape
-        _require(noise, self.noise_spec(n, h, w))
+        check_draws(self, {"z": noise}, n, h, w)
         stats, sizes, skips = {}, [h], []
         hcur = torch.cat([x, noise], dim=1)
         for i, (_, _, pad, bn) in enumerate(self.enc):

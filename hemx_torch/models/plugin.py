@@ -15,8 +15,9 @@ Ported: the BASELINE models ``cnn``, ``vae``, ``gan``, ``wgan`` and
 ``paper_noise``, ``paper_baseline_sampler``, ``paper_standalone``,
 ``paper_baseline_standalone`` and ``sampler_gan``, and the thesis's second
 generation ``improved_sampler``, ``mean_depth_estimator`` and
-``experimental_sampler``, each under hemx's name
-with hemx's ``arguments()``. The registry is an explicit table rather
+``experimental_sampler``, the rest of the conditional zoo ``pix2pix``,
+``artist`` and ``info_gan``, and the no-op ``test`` plugin: every model of
+hemx, each under hemx's name with hemx's ``arguments()``. The registry is an explicit table rather
 than ``hemx``'s package scan.
 """
 
@@ -48,7 +49,11 @@ _REGISTRY = {"cnn": "hemx_torch.models.cnn:CnnModel",
              "mean_depth_estimator":
                  "hemx_torch.models.mean_depth_estimator:MeanDepthEstimator",
              "experimental_sampler":
-                 "hemx_torch.models.experimental_sampler:ExperimentalSampler"}
+                 "hemx_torch.models.experimental_sampler:ExperimentalSampler",
+             "pix2pix": "hemx_torch.models.pix2pix:Pix2Pix",
+             "artist": "hemx_torch.models.artist:Artist",
+             "info_gan": "hemx_torch.models.info_gan:InfoGan",
+             "test": "hemx_torch.models.fake:FakeTestModel"}
 
 
 # --dtype -> the compute dtype of every conv, deconv and dense
@@ -95,6 +100,10 @@ class ModelPlugin:
 
     def batches_per_train_call(self) -> int:
         return 1
+
+    def write_summaries(self, writer, step: int, train_state, batch) -> None:
+        """Images and scalars of a summary step; none by default, as in
+        hemx."""
 
     def capture_activations(self, train_state, batch) -> Optional[dict]:
         """Per-layer activation stats (``--summarize_activations``); None

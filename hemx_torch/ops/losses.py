@@ -16,6 +16,15 @@ from typing import Callable
 import torch
 
 
+def guarded_one_minus(p: torch.Tensor) -> torch.Tensor:
+    """``1 - p``, for a log guard written ``log(guarded_one_minus(p) + eps)``
+    (``hemx.ops.losses.guarded_one_minus``). hemx hides ``1 - p`` behind an
+    optimization barrier so XLA cannot fold the sum into ``(1 + eps) - p``;
+    eager PyTorch adds in the written order, so ``p == 1`` gives
+    ``log(eps)``, not ``-inf``."""
+    return 1.0 - p
+
+
 def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Mean absolute error (reference: models/cnn.py:75-79)."""
     return torch.mean(torch.abs(x - y))

@@ -6,7 +6,8 @@
   imports them; nor PIL, which only a non-PNG image would load.
 * ``python -m hemx_torch.cli ... --device cpu`` trains at a tiny size and
   reports ``step == epoch_size``; without ``--model`` it trains the CNN;
-  ``--device cuda`` without a GPU fails; a model not ported yet exits 2.
+  ``--device cuda`` without a GPU fails; an unknown model exits 2; the
+  port's models are hemx's, ``test`` plugin included.
 * Every flag the port shares with hemx has hemx.config's name and default
   (the data flags included), and every ported model and dataset hemx's
   name and ``arguments()``; hemx's config files (``@FILE``, ``--config
@@ -66,6 +67,8 @@ def test_port_does_not_load_jax():
             "import hemx_torch.models.experimental_sampler\n"
             "import hemx_torch.experimental, hemx_torch.paper_metrics\n"
             "import hemx_torch.paper_fullimage\n"
+            "import hemx_torch.models.pix2pix, hemx_torch.models.artist\n"
+            "import hemx_torch.models.info_gan, hemx_torch.models.fake\n"
             "from hemx_torch.data.plugin import available_datasets\n"
             "assert len(available_datasets()) == 5  # imports every plugin\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
@@ -111,16 +114,38 @@ def test_cli_cuda_without_gpu_fails():
 
 
 def test_cli_unknown_model_exits_2(capsys):
-    """A model hemx has and the port has not yet is refused, naming the
-    ported ones."""
+    """A model neither package has is refused, naming every ported one:
+    hemx's whole zoo."""
     from hemx_torch import cli
-    assert cli.main(["--model", "pix2pix", "--dataset", "synthetic",
+    assert cli.main(["--model", "nope", "--dataset", "synthetic",
                      "--device", "cpu"]) == 2
-    assert ("['cnn', 'experimental_sampler', 'gan', 'improved_sampler', "
-            "'iwgan', 'mean_depth_estimator', 'paper_baseline_sampler', "
-            "'paper_baseline_standalone', 'paper_cgan', 'paper_noise', "
-            "'paper_sampler', 'paper_standalone', 'sampler_gan', 'vae', "
-            "'wgan']") in capsys.readouterr().err
+    assert ("['artist', 'cnn', 'experimental_sampler', 'gan', "
+            "'improved_sampler', 'info_gan', 'iwgan', 'mean_depth_estimator', "
+            "'paper_baseline_sampler', 'paper_baseline_standalone', "
+            "'paper_cgan', 'paper_noise', 'paper_sampler', 'paper_standalone', "
+            "'pix2pix', 'sampler_gan', 'test', 'vae', 'wgan']"
+            ) in capsys.readouterr().err
+
+
+def test_available_models_are_hemx_models():
+    from hemx.models.plugin import available_models as hemx_models
+    from hemx_torch.models.plugin import available_models
+    assert available_models() == hemx_models()
+
+
+def test_test_plugin_trains_through_the_cli(tmp_path):
+    """hemx's no-op ``test`` plugin: its ``--test_arg`` reaches the parsed
+    options, a call pulls one batch and reports loss 0, and validation
+    runs."""
+    from hemx_torch import cli
+    res = cli.run(["--model", "test", "--test_arg", "3", "--dataset",
+                   "synthetic", "--synthetic_count", "8",
+                   "--synthetic_eval_count", "4", "--synthetic_shape", "8",
+                   "8", "3", "--batch_size", "2", "--epochs", "1",
+                   "--device", "cpu", "--seed", "1", "--dir", str(tmp_path)])
+    assert res["args"].test_arg == 3
+    assert [h["loss"] for h in res["history"]] == [0.0] * 4
+    assert res["train_state"].step == 0 and res["epoch"] == 1
 
 
 def test_cli_default_model_is_cnn(tmp_path):
@@ -214,3 +239,32 @@ def test_config_files_parse_as_hemx(config, tmp_path):
     for k in shared:
         assert got[k] == want[k], k
     assert got["batch_size"] == 4
+
+
+PIX2PIX_CONFIGS = sorted(
+    str(p.relative_to(REPO / "examples")) for p in
+    [REPO / "examples" / "pix2pix.config", REPO / "examples" / "artist.config",
+     *(REPO / "examples" / "pix2pix").glob("*.config"),
+     *(REPO / "examples" / "cgan_experiments").rglob("*.config")])
+
+
+@pytest.mark.parametrize("config", PIX2PIX_CONFIGS)
+def test_zoo_config_files_parse_as_hemx(config, tmp_path):
+    """hemx's pix2pix, cgan_experiments and artist config files parse,
+    their NYUv2 flags (``random_crop``, ``skip_invalid``) included, to
+    hemx's values: ``--noise`` as a list, ``--lambda`` into ``l1_lambda``,
+    the store-true flags."""
+    from hemx.config import parse_args as hemx_parse
+    from hemx_torch.config import parse_args
+    path = str(REPO / "examples" / config)
+    tail = ["--seed", "1", "--dir", str(tmp_path)]
+    want = vars(hemx_parse(["@" + path] + tail))
+    got = vars(parse_args(["@" + path] + tail))
+    shared = (set(got) & set(want)) - {"_negatable"}
+    assert {"model", "optimizer", "lr", "epochs", "batch_size",
+            "dataset"} <= shared
+    if want["model"] == "pix2pix":
+        assert {"noise", "dropout", "batch_norm_gen", "batch_norm_disc",
+                "n_disc_train", "add_l1", "l1_lambda"} <= shared
+    for k in shared:
+        assert got[k] == want[k], k

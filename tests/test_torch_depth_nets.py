@@ -182,12 +182,11 @@ def test_generator_matches_hemx(case):
     assert state["_"].shape == () and "_" in dict(net.named_buffers())
     ctx_rng = jax.random.PRNGKey(7)
     kw = {}
-    spec = net.noise_spec(B, hw, hw)
-    if spec is not None:
-        shape, lo, hi = spec
-        nhwc = (shape[0], shape[2], shape[3], shape[1])
-        z = jax.random.uniform(jax.random.split(ctx_rng)[1], nhwc,
-                               minval=lo, maxval=hi)
+    draw = net.noise_draws(B, hw, hw).get("z")
+    if draw is not None:
+        n, c, h, w = draw.shape
+        z = jax.random.uniform(jax.random.split(ctx_rng)[1], (n, h, w, c),
+                               minval=draw.lo, maxval=draw.hi)
         kw["noise"] = _nchw(np.asarray(z))
     h_inputs, t_inputs = (jnp.asarray(x, jnp.float64),), [_nchw(x)]
     if "mean_at_e1" in case:

@@ -180,3 +180,33 @@ def test_gan_d_loss_finite_at_saturation():
                                            jnp.asarray(d_fake.numpy()))),
         rtol=1e-6)
     assert np.isfinite(TLoss.gan_g_loss(torch.tensor([0.0, 1.0])).item())
+
+
+def test_selu_matches_hemx():
+    """hemx's constants, and a finite gradient where expm1 would overflow
+    in the branch ``where`` does not take (x >~ 88.7)."""
+    from hemx.ops.activations import selu as h_selu
+    from hemx_torch.ops.activations import selu
+    x = np.array([-1000.0, -20.0, -1.5, -1e-3, 0.0, 1e-3, 2.0, 88.0, 89.0,
+                  1000.0], np.float32)
+    want_y = np.asarray(h_selu(jnp.asarray(x)))
+    want_g = np.asarray(jax.grad(lambda a: jnp.sum(h_selu(a)))(jnp.asarray(x)))
+    t = torch.from_numpy(x).requires_grad_(True)
+    y = selu(t)
+    y.sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), want_y, rtol=1e-6)
+    np.testing.assert_allclose(t.grad.numpy(), want_g, rtol=1e-6)
+    assert np.isfinite(t.grad.numpy()).all()
+
+
+def test_guarded_one_minus_at_one_is_log_eps():
+    """``log(guarded_one_minus(p) + eps)`` at p == 1.0 exactly is
+    log(eps), not -inf, as hemx's is under jit."""
+    p = torch.ones(3)
+    got = torch.log(TLoss.guarded_one_minus(p) + 1e-8)
+    want = jax.jit(lambda q: jnp.log(HLoss.guarded_one_minus(q) + 1e-8))(
+        jnp.ones(3))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.log(np.float32(1e-8)),
+                               rtol=1e-6)

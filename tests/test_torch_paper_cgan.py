@@ -26,6 +26,7 @@ file ≈ 240 MB at full width, deleted once read).
 """
 
 import contextlib
+import functools
 import shutil
 
 import numpy as np
@@ -125,14 +126,16 @@ def image_tags(logdir) -> set:
 
 def hemx_reference(name, tmp, *, batch=2, conditional=True,
                    checkpoint=False, hw=HW, extra_keys=(), summary_hook=None,
-                   summaries=True, **overrides):
+                   summaries=True, inference=True, train=True, **overrides):
     """One run of hemx's model ``name``: start state, eval losses, predict,
     sample, summaries, and the state and metrics after one train call, all
     from batches drawn from one seed; with ``checkpoint``, hemx's
     checkpoint of the state after the call (≈ 240 MB at full width).
     ``hw``: the input size; ``extra_keys``: one-channel [0, 1) batch keys
     beside image and depth; ``summary_hook(model, ts)`` runs just before
-    hemx writes its summaries, which ``summaries=False`` leaves out."""
+    hemx writes its summaries, which ``summaries=False`` leaves out;
+    ``inference=False`` leaves out eval, predict and sample,
+    ``train=False`` the train call."""
     from hemx.models.plugin import get_model
     from hemx.parallel.dp import shard_batch
     from hemx.parallel.mesh import make_mesh
@@ -154,11 +157,12 @@ def hemx_reference(name, tmp, *, batch=2, conditional=True,
         out = {"args": args, "batches": batches, "n": n, "hw": hw,
                "start": jax.device_get(ts)}
         b0 = shard_batch(batches[0], mesh)
-        out["evals"] = {k: float(v) for k, v in
-                        jax.device_get(model.eval_losses(ts, b0)).items()}
-        g, prep = model._jit_predict(ts, b0)
-        out["predict"] = (np.asarray(g), jax.device_get(prep))
-        if conditional:
+        if inference:
+            out["evals"] = {k: float(v) for k, v in jax.device_get(
+                model.eval_losses(ts, b0)).items()}
+            g, prep = model._jit_predict(ts, b0)
+            out["predict"] = (np.asarray(g), jax.device_get(prep))
+        if inference and conditional:
             g_s, prep_s = model._jit_sample(ts, b0,
                                             jax.random.fold_in(ts["rng"], 0))
             out["sample"] = (np.asarray(g_s), jax.device_get(prep_s))
@@ -171,6 +175,9 @@ def hemx_reference(name, tmp, *, batch=2, conditional=True,
             w.close()
             out["scalars"] = scalars(tmp / "hemx_events")
             out["images"] = image_tags(tmp / "hemx_events")
+        out["model"] = model
+        if not train:
+            return out
         new_ts, metrics = model.train(
             ts, iter([shard_batch(b, mesh) for b in batches]))
         out["metrics"] = {k: float(v) for k, v in
@@ -179,7 +186,7 @@ def hemx_reference(name, tmp, *, batch=2, conditional=True,
         if checkpoint:
             CheckpointManager(str(tmp / "hemx_ckpt")).save(wrapper, 1)
         out.update(after=jax.device_get(new_ts), ckpt_dir=tmp / "hemx_ckpt",
-                   template=jax.device_get(wrapper), model=model)
+                   template=jax.device_get(wrapper))
     return out
 
 
@@ -203,16 +210,36 @@ def generator_of(ts):
 
 
 def g_noise(net, key, batch, hw=HW):
-    """The noise hemx's generator draws from ``key`` (its Ctx's first
-    ``next_rng``: ``split(key)[1]``), NCHW, or {}."""
-    spec = net.noise_spec(batch, hw, hw)
-    if spec is None:
-        return {}
-    shape, lo, hi = spec
-    z = jax.random.uniform(jax.random.split(key)[1],
-                           (shape[0], shape[2], shape[3], shape[1]),
-                           minval=lo, maxval=hi)
-    return {"z": nchw(z)}
+    """The draws hemx's generator takes from ``key`` through its Ctx (each
+    ``next_rng`` draws from ``split(rng)[1]`` and keeps ``split(rng)[0]``,
+    hemx/core.py:52-56), in the order ``net.noise_draws`` names them, NCHW;
+    {} for a net without noise. hemx draws NHWC: the draws are transposed,
+    not redrawn, and keep JAX's dtype."""
+    draws = net.noise_draws(batch, hw, hw)
+    got = _hemx_draws(tuple(draws.values()))(key)
+    # float64 where JAX runs in float64 (the net tests)
+    return {name: torch.from_numpy(np.array(a)).permute(0, 3, 1, 2)
+            for name, a in zip(draws, got)}
+
+
+@functools.lru_cache(maxsize=None)
+def _hemx_draws(draws: tuple):
+    """One jitted program drawing ``draws`` (NCHW :class:`Uniform` and
+    :class:`Keep`) NHWC down hemx's Ctx chain; eager, every draw's shape
+    compiles its own ops."""
+    from hemx_torch.models.depth_nets import Keep
+
+    def chain(key):
+        out, rng = [], key
+        for d in draws:
+            rng, k = jax.random.split(rng)
+            n, c, h, w = d.shape
+            out.append(jax.random.bernoulli(k, d.p, (n, h, w, c))
+                       if isinstance(d, Keep) else
+                       jax.random.uniform(k, (n, h, w, c), minval=d.lo,
+                                          maxval=d.hi))
+        return out
+    return jax.jit(chain, compiler_options=XLA_OPT0)
 
 
 def train_noise(net, key, step, n, batch, hw=HW):

@@ -117,7 +117,7 @@ def test_paper_train_cli_trains_and_resumes(tmp_path):
 
 def test_paper_train_unknown_model_exits_2(capsys):
     from hemx_torch import paper_train
-    assert paper_train.main(["--model", "pix2pix", "--dataset", "synthetic",
+    assert paper_train.main(["--model", "nope", "--dataset", "synthetic",
                              "--device", "cpu"]) == 2
     assert "paper_cgan" in capsys.readouterr().err
 
