@@ -152,6 +152,31 @@ prints its last line):
    their formula, and one more call traced: device launches, device time
    and busy share.
 
+16. celeb and coco at full width: a raw CelebA tree (2,048 / 512 / 256
+   178x218 JPEGs written with Pillow, partition and attribute lists) and a
+   raw COCO tree (384 / 64 / 64 JPEGs of 320x240, 213x320 and 240x320
+   with a polygon, an uncompressed and a compressed RLE per annotated
+   image) are converted by the CLI's preparation step (decode and
+   materialization rates printed); one JPEG's decode equals Pillow's own
+   on this host; the IWGAN bf16 (bs512, latent 200, 5+1, Adam) on celeb
+   through ``cli.run``, an epoch of 4 calls then ``--epochs +1`` with
+   phase 6's checks; coco's ``annotations`` gathered on the card equal
+   the host's uint8 category ids; the CNN bf16 on coco, 4 calls. Input
+   launches against their formula.
+17. Data parallel: ``--n_devices 2`` on a one-GPU host is refused with
+   hemx's message; (a) two gloo ranks on cuda:0 (batch 4 each), started
+   by ``hemx_torch.parallel.mesh.spawn`` with the CLI's worker function,
+   against one process at batch 8, one call each of iwgan, gan, vae and
+   paper_standalone (``--precision highest``): parameters, BN statistics
+   and optimizer state rtol 2e-3 / atol 2e-5 (the VAE, whose float32 KL
+   gradient is ill-conditioned, rtol 2e-2 / atol 1e-2), losses rtol 5e-4
+   (``grad_norm`` 1e-3; the VAE's validation and ``grad_norm`` 2e-2), as
+   ``tests/test_torch_dp_cli.py``; (b) the full-width bf16 IWGAN, 6 calls,
+   through ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1 -m hemx_torch.cli`` (NCCL, world size 1): its median
+   call beside phase 6's, the gradient bytes all-reduced per call, its
+   input launches against their formula.
+
 Phase 2 also times the kernel, by CUDA events and by the device time
 torch.profiler records with the 50 MB L2 cache flushed before each
 launch, on shorter gathers (short enough that an event pair around one
@@ -162,8 +187,9 @@ and 65x65x1, 12,675 and 4,225 bytes, not 16-byte aligned; of 66x66x3 and
 (128 of 256x256x3 and 256x256x1, one pix2pix bs64 call's two batches).
 
 The line before the last is a JSON list of the kernels with their launch
-counts summed over phases 4, 6, 8, 9, 11, 13 and 15 (each path's counts
-set to 0 just before it and read just after; by phase under
+counts summed over phases 4, 6, 8, 9, 11, 13, 15, 16 and 17 (each path's
+counts set to 0 just before it and read just after, phase 17's by each
+worker process and the torchrun run's summary line; by phase under
 ``launches_by_phase``), their phase-2 errors and times (the short gathers
 under ``cold_rows``), and their bound; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -595,11 +621,30 @@ def run_launches(count: int, eval_count: int, batch: int, calls: int,
             + eval_count // batch)
 
 
-def phase_full_width(torch, dev, card: str, workdir: str, *,
+def synthetic_run(dev, *, count: int = 4096, eval_count: int = 1024,
+                  image: int = 64):
+    """A ``cli.run`` on one set of the synthetic splits
+    :func:`full_width_argv` asks for, made once: phases 4, 6 and 8 train
+    on them (each run would draw its 5,120 images on the host again). A
+    run starts with none of an earlier run's device pipelines."""
+    from hemx_torch import cli
+    from hemx_torch.config import parse_args
+    from hemx_torch.data.plugin import get_dataset_tensors
+    splits = get_dataset_tensors(parse_args(full_width_argv(
+        dev, "", count=count, eval_count=eval_count, image=image, batch=1,
+        latent=1)))
+
+    def run(argv):
+        for split in splits.values():
+            split.release_device_pipelines()
+        return cli.run(argv, splits)
+    return run
+
+
+def phase_full_width(torch, dev, card: str, workdir: str, run, *,
                      count: int = 4096, eval_count: int = 1024,
                      image: int = 64, batch: int = 512, latent: int = 200,
                      calls: int = 8) -> int:
-    from hemx_torch import cli
     from hemx_torch.models.gan import IwganModel
     from hemx_torch.ops import input_kernels as K
 
@@ -607,7 +652,7 @@ def phase_full_width(torch, dev, card: str, workdir: str, *,
                            image=image, batch=batch, latent=latent)
     argv += ["--epochs", "1", "--epoch_size", str(calls)]
     K.reset_launches()
-    res = cli.run(argv)
+    res = run(argv)
     launches = K.LAUNCHES["gather_u8_normalize"]
     ts, hist, pipe = res["train_state"], res["history"], res["pipeline"]
     check(ts.step == calls, f"step {ts.step} != {calls}")
@@ -667,7 +712,8 @@ def _trees_equal(a: dict, b: dict) -> bool:
 def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
                    group: int, count: int, eval_count: int,
                    batch: int, *, run=None, dtype: str = "bfloat16",
-                   keys: int = 1, eval_tags=None, bn_input=None) -> dict:
+                   keys: int = 1, eval_tags=None, bn_input=None,
+                   image: int = 0) -> dict:
     """``run(argv)`` (default ``cli.run``) for one epoch of ``calls`` calls
     with ``--max_to_keep 2``, then ``--epochs +1`` on the same ``--dir``,
     with the input kernel's counts set to 0 just before and read just
@@ -680,8 +726,9 @@ def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
     (and with it each layer without BN's output) and every BN input; the
     launch count, one per ``keys`` uint8 keys. ``bn_input``: the BN
     inputs' dtype where it is not ``dtype`` (pix2pix's nets add the f32
-    bias to a bf16 product uncast, as hemx's do). Returns both runs'
-    results and the launches."""
+    bias to a bf16 product uncast, as hemx's do). ``image``: the input
+    side when the dataset is not synthetic. Returns both runs' results and
+    the launches."""
     from hemx_torch import cli, convert
     from hemx_torch.models.plugin import get_model
     from hemx_torch.ops import input_kernels as K
@@ -742,7 +789,7 @@ def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
     check(r is not None and r["epoch"] == 1 and r["step"] == calls
           and r["path"].endswith("checkpoint-1.msgpack"),
           f"{args.model}: second run resumed from {r}")
-    image = args.synthetic_shape[0]
+    image = image or args.synthetic_shape[0]
     fresh = get_model(args.model)(args, dev).init_state((3, image, image), 0)
     check(convert.load_checkpoint(fresh, ckpt1) == 1
           and _trees_equal(convert.to_checkpoint(fresh, 1), ckpt1),
@@ -794,7 +841,8 @@ def run_and_resume(torch, dev, workdir: str, argv: list, calls: int,
             "losses": losses}
 
 
-def phase_bf16_run(torch, dev, card: str, workdir: str, *, count: int = 4096,
+def phase_bf16_run(torch, dev, card: str, workdir: str, run, *,
+                   count: int = 4096,
                    eval_count: int = 1024, image: int = 64, batch: int = 512,
                    latent: int = 200, calls: int = 6) -> int:
     from hemx_torch.summaries.crc32c import masked_crc32c
@@ -802,7 +850,7 @@ def phase_bf16_run(torch, dev, card: str, workdir: str, *, count: int = 4096,
     argv = full_width_argv(dev, workdir, count=count, eval_count=eval_count,
                            image=image, batch=batch, latent=latent)
     out = run_and_resume(torch, dev, workdir, argv, calls, 6, count,
-                         eval_count, batch)
+                         eval_count, batch, run=run)
     t, t2 = out["res1"]["timings"], out["res2"]["timings"]
     crc_data = bytes(range(256)) * 4096  # 1 MiB
     t0 = time.perf_counter()
@@ -821,7 +869,7 @@ def phase_bf16_run(torch, dev, card: str, workdir: str, *, count: int = 4096,
           f"{statistics.median(t['summary_s'] + t2['summary_s']):.4f} "
           f"(n={len(t['summary_s'] + t2['summary_s'])}); pure-Python "
           f"crc32c {crc_s:.4f} s per MiB", flush=True)
-    return out["launches"]
+    return out["launches"], med
 
 
 # (model, batch, train-call group, flags): BASELINE's widths and optimizers
@@ -867,7 +915,7 @@ def phase_zoo_card_vs_cpu(torch, dev) -> None:
               flush=True)
 
 
-def phase_zoo_bf16_runs(torch, dev, card: str, workdir: str, *,
+def phase_zoo_bf16_runs(torch, dev, card: str, workdir: str, run, *,
                         count: int = 4096, eval_count: int = 1024,
                         image: int = 64, latent: int = 200,
                         calls: int = 4) -> dict:
@@ -881,7 +929,7 @@ def phase_zoo_bf16_runs(torch, dev, card: str, workdir: str, *,
                                image=image, batch=batch, latent=latent,
                                model=name, flags=flags)
         out = run_and_resume(torch, dev, d, argv, calls, group, count,
-                             eval_count, batch)
+                             eval_count, batch, run=run)
         launches[name] = out["launches"]
         med = out["median_s"]
         last = out["res2"]["history"][-1]
@@ -1024,8 +1072,9 @@ def phase_data(torch, dev, card: str, workdir: str, *, size: int = 128,
     (streaming: the split has a host transform). Returns the input kernel's
     launches of each run."""
     from hemx_torch import cli
+    from hemx_torch.config import parse_args
     from hemx_torch.data.pipeline import DeviceDataPipeline, Pipeline
-    from hemx_torch.data.plugin import get_dataset
+    from hemx_torch.data.plugin import get_dataset, get_dataset_tensors
     from hemx_torch.ops import input_kernels as K
 
     raw, store = os.path.join(workdir, "raw"), os.path.join(workdir, "store")
@@ -1051,11 +1100,14 @@ def phase_data(torch, dev, card: str, workdir: str, *, size: int = 128,
             "--epochs", "1", "--epoch_size", str(calls), "--device", str(dev),
             "--seed", "0"]
     runs, launches = {}, {}
+    # both runs train on one materialization of the records (the decode
+    # is timed once, by the first run)
+    splits = get_dataset_tensors(parse_args(argv + ["--dir", workdir]))
     for name, extra in (("cached", []), ("streaming",
                                          ["--no-device_data_cache"])):
         K.reset_launches()
         runs[name] = cli.run(argv + ["--dir", os.path.join(workdir, name)]
-                             + extra)
+                             + extra, splits=splits)
         launches[name] = K.LAUNCHES["gather_u8_normalize"]
     a, b = runs["cached"], runs["streaming"]
     check(isinstance(a["pipeline"], DeviceDataPipeline)
@@ -1972,6 +2024,430 @@ def phase_zoo_rest(torch, dev, card: str, workdir: str, *, count: int = 1024,
     return launches
 
 
+def photo_bank(rng, h: int, w: int, n: int = 16) -> list:
+    """``n`` smooth photograph-like RGB images of ``h`` x ``w``: random
+    colours on a coarse grid of 8x8 cells, bilinearly spread. A JPEG of
+    one decodes as slowly as a photograph of its size."""
+    import numpy as np
+    ys = np.linspace(0, 8, h, dtype=np.float32)
+    xs = np.linspace(0, 8, w, dtype=np.float32)
+    y0, x0 = np.minimum(ys.astype(int), 7), np.minimum(xs.astype(int), 7)
+    wy, wx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    bank = []
+    for _ in range(n):
+        low = rng.uniform(0, 255, (9, 9, 3)).astype(np.float32)
+        top = low[y0][:, x0] * (1 - wx) + low[y0][:, x0 + 1] * wx
+        bot = low[y0 + 1][:, x0] * (1 - wx) + low[y0 + 1][:, x0 + 1] * wx
+        bank.append((top * (1 - wy) + bot * wy).astype(np.uint8))
+    return bank
+
+
+def photo(rng, bank: list):
+    """One of ``bank``'s images, rolled by a random offset."""
+    import numpy as np
+    img = bank[int(rng.integers(len(bank)))]
+    return np.roll(img, tuple(int(v) for v in rng.integers(0, 64, 2)),
+                   axis=(0, 1))
+
+
+def jpeg_bytes(img, quality: int = 90) -> bytes:
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=quality)
+    return buf.getvalue()
+
+
+def write_celeb_raw(raw: str, counts: dict, seed: int) -> list:
+    """A raw CelebA tree: ``img_align_celeba/`` of 178x218 JPEGs (encoded
+    here with Pillow), ``list_eval_partition.txt`` (0/1/2) and
+    ``list_attr_celeba.txt`` (count, names, then +-1 per attribute).
+    Returns the file names."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    bank = photo_bank(rng, 218, 178)
+    os.makedirs(os.path.join(raw, "img_align_celeba"), exist_ok=True)
+    names, codes = [], []
+    for code, split in enumerate(("train", "validate", "test")):
+        for _ in range(counts[split]):
+            name = f"{len(names) + 1:06d}.jpg"
+            with open(os.path.join(raw, "img_align_celeba", name), "wb") as f:
+                f.write(jpeg_bytes(photo(rng, bank)))
+            names.append(name)
+            codes.append(code)
+    with open(os.path.join(raw, "list_eval_partition.txt"), "w") as f:
+        f.writelines(f"{n} {c}\n" for n, c in zip(names, codes))
+    with open(os.path.join(raw, "list_attr_celeba.txt"), "w") as f:
+        f.write(f"{len(names)}\n" + " ".join(f"attr{i}" for i in range(40))
+                + "\n")
+        for n in names:
+            f.write(n + " " + " ".join(str(v) for v in rng.choice([-1, 1], 40))
+                    + "\n")
+    return names
+
+
+def coco_rle_string(counts) -> str:
+    """COCO's compressed RLE string of run lengths ``counts``."""
+    out = []
+    for i, x in enumerate(counts):
+        if i > 2:
+            x -= counts[i - 2]
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = x != -1 if c & 0x10 else x != 0
+            out.append(chr((c | 0x20 if more else c) + 48))
+    return "".join(out)
+
+
+def write_coco_raw(raw: str, counts: dict, seed: int) -> None:
+    """A raw COCO 2014 tree: ``train2014/``, ``val2014/`` and
+    ``test2014/`` JPEGs of three sizes, and ``annotations/`` json with a
+    polygon, an uncompressed RLE and a compressed RLE per image of the
+    annotated splits (categories 1-90)."""
+    import json
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes = ((240, 320), (213, 320), (320, 240))
+    banks = [photo_bank(rng, h, w) for h, w in sizes]
+    files = {"train": ("train2014", "instances_train2014.json"),
+             "validate": ("val2014", "instances_val2014.json"),
+             "test": ("test2014", "image_info_test2014.json")}
+    os.makedirs(os.path.join(raw, "annotations"), exist_ok=True)
+    for split, n in counts.items():
+        d, ann_file = files[split]
+        os.makedirs(os.path.join(raw, d), exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            h, w = sizes[i % 3]
+            image_id = 100000 * len(images) + i
+            name = f"COCO_{d}_{image_id:012d}.jpg"
+            with open(os.path.join(raw, d, name), "wb") as f:
+                f.write(jpeg_bytes(photo(rng, banks[i % 3])))
+            images.append({"id": image_id, "file_name": name, "height": h,
+                           "width": w})
+            if split == "test":
+                continue
+            y0, x0 = int(rng.integers(0, h // 2)), int(rng.integers(0, w // 2))
+            cats = rng.integers(1, 91, 3)
+            anns += [
+                {"segmentation": [[x0, y0, x0 + w / 3, y0 + 5, x0 + 10,
+                                   y0 + h / 3]], "bbox": [x0, y0, w / 3,
+                                                          h / 3],
+                 "iscrowd": 0, "area": float(h * w / 18),
+                 "category_id": int(cats[0]), "image_id": image_id},
+                {"segmentation": {"counts": [h * 3 + 7, h * 2 - 9,
+                                             h * w - 5 * h + 2],
+                                  "size": [h, w]},
+                 "bbox": [3, 7, 2, h - 2], "iscrowd": 1,
+                 "area": float(h * 2 - 9), "category_id": int(cats[1]),
+                 "image_id": image_id},
+                {"segmentation": {"counts": coco_rle_string(
+                    [h * 10 + 4, 40, h - 44, 12, h * w - 11 * h - 12]),
+                    "size": [h, w]},
+                 "bbox": [10, 4, 2, 40], "iscrowd": 1, "area": 52.0,
+                 "category_id": int(cats[2]), "image_id": image_id}]
+        with open(os.path.join(raw, "annotations", ann_file), "w") as f:
+            json.dump({"images": images, "annotations": anns}, f)
+
+
+def phase_celeb_coco(torch, dev, card: str, workdir: str, *,
+                     celeb_counts=(2048, 512, 256), coco_counts=(384, 64, 64),
+                     batch: int = 512, calls: int = 4,
+                     cnn_batch: int = 64) -> dict:
+    """celeb and coco at full width: raw trees written here, converted by
+    the CLI's preparation step, the IWGAN bf16 on celeb (bs512, latent 200,
+    5+1, Adam) with run and resume, and the CNN on coco; each run's input
+    launches against their formula. Returns the launches by run."""
+    import numpy as np
+    from PIL import Image
+
+    import PIL
+    from hemx_torch import cli
+    from hemx_torch.config import parse_args
+    from hemx_torch.data.imageio import decode_image
+    from hemx_torch.data.pipeline import DeviceDataPipeline
+    from hemx_torch.data.plugin import get_dataset_tensors, prepare_dataset
+    from hemx_torch.ops import input_kernels as K
+
+    store = os.path.join(workdir, "store")
+    launches, rates = {}, {}
+    for name, counts, write in (("celeb", celeb_counts, write_celeb_raw),
+                                ("coco", coco_counts, write_coco_raw)):
+        raw = os.path.join(workdir, f"{name}_raw")
+        split_counts = dict(zip(("train", "validate", "test"), counts))
+        t0 = time.perf_counter()
+        write(raw, split_counts, seed=0)
+        write_s = time.perf_counter() - t0
+        args = parse_args(["--dataset", name, "--raw_dataset_dir", raw,
+                           "--dataset_dir", store, "--device", str(dev),
+                           "--dir", os.path.join(workdir, "unused")])
+        t0 = time.perf_counter()
+        prepare_dataset(args)
+        convert_s = time.perf_counter() - t0
+        splits = get_dataset_tensors(args)
+        t0 = time.perf_counter()
+        n = splits["train"].count
+        mat_s = time.perf_counter() - t0
+        check(n == counts[0], f"{name}: {n} train records, expected "
+                              f"{counts[0]}")
+        rates[name] = (sum(counts), write_s, convert_s, n, mat_s, splits)
+        print(f"{name} raw: {sum(counts)} JPEGs written (Pillow "
+              f"{PIL.__version__}) in {write_s:.2f} s; records by the CLI's "
+              f"preparation in {convert_s:.2f} s ({sum(counts) / convert_s:.1f}"
+              f" images/s); train split materialized (decoded, resized to "
+              f"64x64) in {mat_s:.2f} s = {n / mat_s:.1f} images/s",
+              flush=True)
+    jpg = os.path.join(workdir, "celeb_raw", "img_align_celeba", "000001.jpg")
+    with open(jpg, "rb") as f:
+        data = f.read()
+    check(np.array_equal(decode_image(data), np.asarray(
+        Image.open(jpg).convert("RGB"))),
+        "the port's JPEG decode differs from Pillow's on this host")
+
+    celeb_splits = rates["celeb"][5]
+    argv = ["--model", "iwgan", "--dataset", "celeb", "--dataset_dir", store,
+            "--batch_size", str(batch), "--latent_size", "200", *IWGAN_FLAGS,
+            "--device", str(dev), "--dir", os.path.join(workdir, "celeb_iwgan"),
+            "--seed", "0"]
+    out = run_and_resume(torch, dev, os.path.join(workdir, "celeb_iwgan"),
+                         argv, calls, 6, celeb_counts[0], celeb_counts[1],
+                         batch, run=lambda a: cli.run(a, splits=celeb_splits),
+                         image=64)
+    launches["celeb_iwgan_bf16_run_and_resume"] = out["launches"]
+    print(f"IWGAN bf16 on celeb records, bs{batch} 64x64x3 latent 200, 5+1, "
+          f"Adam, 2 runs of {calls} calls on {card}: median call "
+          f"{out['median_s']:.4f} s ({out['steady']} steady calls), "
+          f"{batch / out['median_s']:.1f} images/s; {out['launches']} "
+          f"input-kernel launches (formula "
+          f"{2 * run_launches(celeb_counts[0], celeb_counts[1], batch, calls)}"
+          f")", flush=True)
+
+    coco_splits = rates["coco"][5]
+    feed = DeviceDataPipeline(coco_splits["train"], cnn_batch, device=dev,
+                              shuffle=False)
+    got = next(feed.epoch(0))
+    host = next(coco_splits["train"].iter_epoch(cnn_batch, shuffle=False))
+    check(got["annotations"].dtype == torch.uint8 and torch.equal(
+        got["annotations"].permute(0, 2, 3, 1).cpu(),
+        torch.from_numpy(host["annotations"])),
+        "coco annotations through the device cache differ from the host's")
+    check(len(np.unique(host["annotations"])) > 3,
+          "coco masks hold too few category ids")
+    cnn = ["--model", "cnn", "--dataset", "coco", "--dataset_dir", store,
+           "--batch_size", str(cnn_batch), "--latent_size", "200", "--optimizer",
+           "rmsprop", "--lr", "1e-4", "--dtype", "bfloat16", "--epochs", "1",
+           "--epoch_size", "4", "--device", str(dev), "--seed", "0",
+           "--dir", os.path.join(workdir, "coco_cnn")]
+    K.reset_launches()
+    res = cli.run(cnn, splits=coco_splits)
+    launches["coco_cnn"] = K.LAUNCHES["gather_u8_normalize"]
+    want = run_launches(coco_counts[0], coco_counts[1], cnn_batch, 4, 1)
+    check(res["train_state"].step == 4 and all(
+        math.isfinite(h["loss"]) for h in res["history"]),
+        f"coco CNN: step {res['train_state'].step}, {res['history']}")
+    check(launches["coco_cnn"] == want, f"coco CNN: input kernel launched "
+          f"{launches['coco_cnn']} times, expected {want}")
+    print(f"CNN bf16 on coco records, bs{cnn_batch}, rmsprop, 4 calls on "
+          f"{card}: "
+          f"median call {res['summary']['median_call_s']:.4f} s; "
+          f"annotations gathered on the card as uint8 category ids equal "
+          f"the host's; {launches['coco_cnn']} input-kernel launches "
+          f"(expected {want})", flush=True)
+    return launches
+
+
+def _dp_runs(runs, out_dir: str) -> None:
+    """Each ``(entry, argv)`` of ``runs`` in this rank of a process group,
+    through the entry point's run function; the input kernel's launches
+    of each go to ``out_dir/launches-<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from hemx_torch import cli, paper_train
+    from hemx_torch.ops import input_kernels as K
+    torch.backends.cudnn.deterministic = True  # see DP_SMALL
+    counts = []
+    for entry, argv in runs:
+        K.reset_launches()
+        cli._worker_main(argv, {"cli": cli.run,
+                                "paper_train": paper_train.run}[entry])
+        counts.append(K.LAUNCHES["gather_u8_normalize"])
+    with open(os.path.join(out_dir, f"launches-{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(counts, f)
+
+
+# phase 17 (a): one call of each on two gloo ranks of cuda:0 (batch 4
+# each) and in one process at batch 8: (name, entry point, uint8 keys,
+# flags). Both sides run cuDNN's deterministic algorithms: with the
+# default ones, one process repeating the gan's call on identical inputs
+# now and then ends with an optimizer state (the raw gradient) outside
+# the tolerance below, which would read as the two sides disagreeing;
+# tests/test_torch_cuda_determinism.py counts such runs and shows the
+# deterministic ones repeat bit for bit.
+DP_SMALL = [
+    ("iwgan", "cli", 1, ["--model", "iwgan", "--latent_size", "16",
+                      "--n_disc_train", "2",
+                      "--optimizer", "momentum", "--lr", "1e-3",
+                      "--momentum", "0.5"]),
+    ("gan", "cli", 1, ["--model", "gan", "--latent_size", "16", "--optimizer",
+                    "momentum", "--lr", "1e-3", "--momentum", "0.5"]),
+    ("vae", "cli", 1, ["--model", "vae", "--latent_size", "16", "--optimizer",
+                    "sgd", "--lr", "1e-4"]),
+    ("paper_standalone", "paper_train", 2, [
+        "--model", "paper_standalone", "--model_version", "mean_provided"]),
+]
+
+
+def phase_data_parallel(torch, dev, card: str, workdir: str, bf16_median: float,
+                        *, count: int = 3072, eval_count: int = 512,
+                        batch: int = 512, calls: int = 6) -> dict:
+    """(a) two gloo ranks on ``dev`` against one process at the global
+    batch, through the library's worker function; (b) the full-width bf16
+    IWGAN through ``torchrun`` (NCCL, world size 1). Returns launches."""
+    import numpy as np
+    from hemx_torch import cli, paper_train
+    from hemx_torch.config import parse_args
+    from hemx_torch.convert import flatten_tree
+    from hemx_torch.ops import input_kernels as K
+    from hemx_torch.parallel import mesh
+    from hemx_torch.summaries.reader import get_all_events
+    from hemx_torch.train.checkpoint import CheckpointManager
+
+    try:
+        cli.workers(parse_args(["--dataset", "synthetic", "--n_devices", "2",
+                                "--device", "cuda", "--dir", workdir]))
+        check(torch.cuda.device_count() >= 2,
+              "--n_devices 2 was not refused on a one-GPU host")
+    except cli.CliError as e:
+        check(str(e) == f"requested 2 devices but only "
+                        f"{torch.cuda.device_count()} available",
+              f"--n_devices 2 refused with {e}")
+        print(f"--n_devices 2 on this host: refused, as hemx refuses it: "
+              f"{e}", flush=True)
+
+    def argv(flags, shape, b, d):
+        return (["--dataset", "synthetic", "--synthetic_u8",
+                 "--synthetic_count", "32", "--synthetic_eval_count", "16",
+                 "--synthetic_shape", *shape, "--epochs", "1",
+                 "--epoch_size", "1", "--precision",
+                 "highest", "--device", str(dev), "--seed", "3",
+                 "--batch_size", str(b), "--dir", d] + flags)
+
+    runs, one = [], []
+    for name, entry, _, flags in DP_SMALL:
+        shape = ["65", "65", "3"] if entry == "paper_train" else ["32", "32",
+                                                                  "3"]
+        runs.append((entry, argv(flags, shape, 4,
+                                 os.path.join(workdir, name, "two"))))
+        one.append((entry, argv(flags, shape, 8,
+                                os.path.join(workdir, name, "one"))))
+    t0 = time.perf_counter()
+    mesh.spawn(_dp_runs, 2, device=str(dev), backend="gloo",
+               args=(runs, workdir))
+    spawn_s = time.perf_counter() - t0
+    rank_launches = [json.load(open(os.path.join(workdir,
+                                                 f"launches-{r}.json")))
+                     for r in (0, 1)]
+    launches = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # see DP_SMALL
+    for (name, entry, keys, _), (_, a), r0, r1 in zip(DP_SMALL, one,
+                                                      *rank_launches):
+        K.reset_launches()
+        {"cli": cli.run, "paper_train": paper_train.run}[entry](a)
+        single = K.LAUNCHES["gather_u8_normalize"]
+        launches[f"dp2_{name}_rank0"] = r0
+        launches[f"dp2_{name}_rank1"] = r1
+        # rank 0 places the summary batch (one launch per uint8 key);
+        # rank 1 does not
+        check(r0 == single and r1 == single - keys,
+              f"{name}: launches rank 0 {r0}, rank 1 {r1}, one process "
+              f"{single}")
+        tol = (dict(rtol=2e-2, atol=1e-2) if name == "vae"
+               else dict(rtol=2e-3, atol=2e-5))
+        worst = 0.0
+        trees = []
+        for side in ("two", "one"):
+            m = CheckpointManager(os.path.join(workdir, name, side))
+            trees.append(flatten_tree(m.restore()["train_state"]))
+        for k in trees[1]:
+            if k[0] in ("params", "mstate", "opt"):
+                a_, b_ = np.asarray(trees[0][k]), np.asarray(trees[1][k])
+                check(np.allclose(a_, b_, **tol),
+                      f"{name} {'/'.join(k)}: two ranks differ from one "
+                      f"process by {np.abs(a_ - b_).max()}")
+                if a_.size:
+                    worst = max(worst, float(np.abs(a_ - b_).max()))
+        for phase in ("train", "validate"):
+            ev = [{(t, s): v for t, rows in get_all_events(os.path.join(
+                workdir, name, side, phase)).items()
+                   if t.startswith("losses/") for _, s, v in rows}
+                  for side in ("two", "one")]
+            check(ev[0].keys() == ev[1].keys() and ev[1],
+                  f"{name} {phase}: losses {sorted(ev[0])} vs "
+                  f"{sorted(ev[1])}")
+            for k, v in ev[1].items():
+                rt = 2e-2 if name == "vae" and (
+                    phase == "validate" or "grad_norm" in k[0]) else (
+                    1e-3 if "grad_norm" in k[0] else 5e-4)
+                check(abs(ev[0][k] - v) <= rt * abs(v) + 1e-5,
+                      f"{name} {phase} {k}: two ranks {ev[0][k]}, one "
+                      f"process {v}")
+        print(f"{name}: 2 gloo ranks on {card} (batch 4 each) vs one "
+              f"process (batch 8): one call, max |diff| of params, BN "
+              f"stats and optimizer state {worst:.3g} (allowed rtol "
+              f"{tol['rtol']} / atol {tol['atol']}), losses within their "
+              f"tolerance; launches rank 0 {r0}, rank 1 {r1}, one process "
+              f"{single}", flush=True)
+    torch.backends.cudnn.deterministic = deterministic
+    print(f"phase 17 (a): the two ranks' four runs took {spawn_s:.1f} s "
+          f"(process start included)", flush=True)
+
+    full = full_width_argv(dev, os.path.join(workdir, "torchrun"),
+                           count=count, eval_count=eval_count, image=64,
+                           batch=batch, latent=200)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "hemx_torch.cli", *full,
+           "--dtype", "bfloat16", "--epochs", "1", "--epoch_size",
+           str(calls), "--summary_freq", "1"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": os.getcwd()})
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"torchrun failed ({r.returncode}):\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    s = json.loads(r.stdout.strip().splitlines()[-1])
+    want = run_launches(count, eval_count, batch, calls)
+    launches["torchrun_nccl_world1_iwgan_bf16"] = (
+        s["input_kernel_launches"]["gather_u8_normalize"])
+    check(s["processes"] == 1 and s["device"] == str(dev)
+          and s["step"] == calls and s["global_batch"] == batch,
+          f"torchrun summary {s}")
+    check(launches["torchrun_nccl_world1_iwgan_bf16"] == want,
+          f"torchrun: input kernel launched "
+          f"{launches['torchrun_nccl_world1_iwgan_bf16']} times, expected "
+          f"{want}")
+    red = s["grad_all_reduce"]
+    check(red["collectives"] > 0, f"no gradient all-reduce under torchrun: "
+                                  f"{s}")
+    med = s["median_call_s"]
+    print(f"IWGAN bf16 bs{batch} 64x64x3 latent 200, 5+1, Adam through "
+          f"torchrun (NCCL, world size 1) on {card}: median call {med:.4f} s "
+          f"against phase 6's {bf16_median:.4f} s in this script "
+          f"({100 * (med / bf16_median - 1):+.2f} %); "
+          f"{red['bytes'] / s['calls'] / 1e6:.1f} MB all-reduced per call in "
+          f"{red['collectives'] / s['calls']:.1f} collectives; "
+          f"{launches['torchrun_nccl_world1_iwgan_bf16']} input-kernel "
+          f"launches (expected {want}); the command took {wall:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2000,19 +2476,20 @@ def main() -> int:
         stage("phase 3: card vs cpu, small size")
         phase_card_vs_cpu(torch, dev)
         stage("phase 4: the slice at full width")
+        run64 = synthetic_run(dev)
         launches = phase_full_width(torch, dev, card,
-                                    os.path.join(workdir, "f32"))
+                                    os.path.join(workdir, "f32"), run64)
         stage("phase 5: card vs cpu, bf16 + rmsprop, small size")
         phase_bf16_card_vs_cpu(torch, dev)
         stage("phase 6: the whole bf16 run at full width, with resume")
-        launches_bf16 = phase_bf16_run(torch, dev, card,
-                                       os.path.join(workdir, "bf16"))
+        launches_bf16, bf16_median = phase_bf16_run(
+            torch, dev, card, os.path.join(workdir, "bf16"), run64)
         stage("phase 7: card vs cpu, gan/wgan/cnn/vae, small size")
         phase_zoo_card_vs_cpu(torch, dev)
         stage("phase 8: gan/wgan/cnn/vae at full width in bf16, with "
               "resume")
         launches_zoo = phase_zoo_bf16_runs(torch, dev, card,
-                                           os.path.join(workdir, "zoo"))
+                                           os.path.join(workdir, "zoo"), run64)
         stage("phase 9: the data layer at full width")
         data_dir = os.path.join(workdir, "data")
         launches_data = phase_data(torch, dev, card, data_dir)
@@ -2037,6 +2514,12 @@ def main() -> int:
               "through the CLI")
         launches_zoo_rest = phase_zoo_rest(torch, dev, card,
                                            os.path.join(workdir, "zoo_rest"))
+        stage("phase 16: celeb and coco at full width")
+        launches_celeb_coco = phase_celeb_coco(
+            torch, dev, card, os.path.join(workdir, "celeb_coco"))
+        stage("phase 17: data parallel, two gloo ranks and torchrun")
+        launches_dp = phase_data_parallel(
+            torch, dev, card, os.path.join(workdir, "dp"), bf16_median)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     by_phase = {"phase4_iwgan_f32": launches, "phase6_iwgan_bf16": launches_bf16,
@@ -2044,14 +2527,16 @@ def main() -> int:
                 **{f"phase9_{k}": v for k, v in launches_data.items()},
                 **{f"phase11_{k}": v for k, v in launches_thesis.items()},
                 **{f"phase13_{k}": v for k, v in launches_slice.items()},
-                **{f"phase15_{k}": v for k, v in launches_zoo_rest.items()}}
+                **{f"phase15_{k}": v for k, v in launches_zoo_rest.items()},
+                **{f"phase16_{k}": v for k, v in launches_celeb_coco.items()},
+                **{f"phase17_{k}": v for k, v in launches_dp.items()}}
     print(json.dumps({"kernels": [{
         "name": "gather_u8_normalize", "route": "triton",
         "source": "hemx_torch/ops/input_kernels.py",
         "replaces": "hemx/ops/pallas_kernels.py:75",
         "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
         **kern}]}), flush=True)
-    print(f"phase 15 took {time.perf_counter() - marks[-1]:.1f} s; the script "
+    print(f"phase 17 took {time.perf_counter() - marks[-1]:.1f} s; the script "
           f"{time.perf_counter() - marks[0]:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

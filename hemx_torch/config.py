@@ -6,7 +6,10 @@ Every flag the port reads has ``hemx.config``'s name and default (pinned by
 plugin's ``arguments()``, as in ``hemx``. ``@FILE`` (or ``--config FILE``)
 reads flags from one of hemx's config files (``key value`` lines, ``#``
 comments, e.g. ``examples/improved_sampler/a1.config``), expanded in place
-so later flags override it. ``--buffer_size``,
+so later flags override it. ``--n_devices`` (alias ``--n_gpus``) is
+hemx's: devices of the data-parallel run, ``--batch_size`` per device;
+``--model_parallel`` and ``--spatial_parallel`` parse and are refused
+above 1 (``hemx_torch.parallel.mesh``). ``--buffer_size``,
 ``--cache_dir`` and ``--n_threads`` are accepted and unread, as in
 ``hemx``. Parsing is ``hemx``'s
 three phases — general flags, then the dataset's, then the model's — and
@@ -50,6 +53,17 @@ def build_base_parser() -> argparse.ArgumentParser:
     misc.add_argument("--device", default="cuda",
                       help="torch device to train on ('cuda', 'cuda:1', "
                            "'cpu'); a CUDA device that is absent is an error.")
+    misc.add_argument("--n_devices", "--n_gpus", dest="n_devices", type=int,
+                      default=0,
+                      help="Devices in the data-parallel mesh (0 = all local "
+                           "devices): one process per device, each holding "
+                           "--batch_size rows of the global batch.")
+    misc.add_argument("--model_parallel", type=int, default=1,
+                      help="Tensor-parallel degree (hemx's 'model' mesh "
+                           "axis); not ported: above 1 is refused.")
+    misc.add_argument("--spatial_parallel", type=int, default=1,
+                      help="Spatial-parallel degree (hemx's 'spatial' mesh "
+                           "axis); not ported: above 1 is refused.")
     misc.add_argument("--profile", action="store_true", default=False,
                       help="Record a torch.profiler trace of up to ten train "
                            "calls of the first epoch into <dir>/profile.")
@@ -76,7 +90,9 @@ def build_base_parser() -> argparse.ArgumentParser:
     train.add_argument("--epochs", default="3",
                        help="Epochs this run: integer for max, or +n for n "
                             "more from checkpoint.")
-    train.add_argument("--batch_size", type=int, default=256)
+    train.add_argument("--batch_size", type=int, default=256,
+                       help="Batch size per device (global batch = "
+                            "batch_size * n_devices).")
     train.add_argument("--epoch_size", type=int, default=-1,
                        help="Train calls per epoch (-1 = full dataset).")
     train.add_argument("--dir", type=str, default=None,
@@ -146,14 +162,29 @@ def build_base_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def parse_args(argv=None):
-    from hemx_torch.data.plugin import get_dataset
-    from hemx_torch.models.plugin import get_model
-
+def _expand(argv) -> list:
+    """``argv`` (default ``sys.argv[1:]``) with ``--config FILE`` as
+    ``@FILE``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     while "--config" in argv:
         i = argv.index("--config")
         argv[i:i + 2] = ["@" + argv[i + 1]]
+    return argv
+
+
+def parse_base_args(argv=None):
+    """The general flags alone, with nothing reported and nothing
+    resolved (an entry point reads ``--n_devices`` and ``--device`` with
+    it before the run parses everything)."""
+    return build_base_parser().parse_known_args(_expand(argv))[0]
+
+
+def parse_args(argv=None):
+    from hemx_torch.data.plugin import get_dataset
+    from hemx_torch.models.plugin import get_model
+    from hemx_torch.parallel import dp
+
+    argv = _expand(argv)
     parser = build_base_parser()
     args, leftover = parser.parse_known_args(argv)
     for cls in (get_dataset(args.dataset), get_model(args.model)):
@@ -161,7 +192,7 @@ def parse_args(argv=None):
             for k, v in cls.arguments().items():
                 parser.add_argument(k, **v)
             args, leftover = parser.parse_known_args(leftover, namespace=args)
-    if leftover:
+    if leftover and dp.is_primary():
         print(f"WARNING: unknown and unused arguments provided: {leftover}",
               file=sys.stderr)
     # BooleanOptionalAction flags are dumped in their no- form when False
@@ -187,8 +218,8 @@ def init_working_dir(args) -> str:
 def load_options(path: str) -> dict:
     """A run's ``options.json`` as a dict (the evaluation tools rebuild the
     model from it). It may come from hemx, whose file also holds keys the
-    port does not read (``n_devices``, ``deconv_impl``, ...): they are kept
-    and ignored."""
+    port does not read (``deconv_impl``, ...): they are kept and
+    ignored."""
     with open(path) as f:
         return json.load(f)
 

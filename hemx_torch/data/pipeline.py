@@ -24,6 +24,13 @@ Two feeders, as in ``hemx``, yield the same batches bit for bit:
 Batches are dicts of device tensors: a ``U8Normalize`` key as (B, C, H, W)
 float32 in channels_last memory, any other 4-D key permuted to (B, C, H, W)
 the same way, other keys as they are.
+
+In a process group of W ranks both feeders walk hemx's order of global
+batches (``global_batch`` rows each) and rank r takes rows
+``[r*B : (r+1)*B]`` of each, B = global_batch / W, as hemx shards a batch
+over its ``data`` axis: the cache gathers only those rows (every rank holds
+the whole dataset), the streaming feeder ships ``dp.host_slice`` of each
+host batch.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 
 from hemx_torch.data.tfrecord import read_all_records
 from hemx_torch.ops.input_kernels import gather_u8_normalize
+from hemx_torch.parallel import dp
 
 
 class ArraySource:
@@ -313,7 +321,7 @@ class DeviceDataPipeline:
     ``index_select``. The group result is split into batches with
     ``torch.split`` (views). The epoch tail that does not fill a group
     takes the per-batch path. Batches and order equal ``hemx``'s
-    DeviceDataPipeline.
+    DeviceDataPipeline (this rank's rows of them in a process group).
     """
 
     def __init__(self, split: Split, global_batch: int, *, device,
@@ -325,6 +333,7 @@ class DeviceDataPipeline:
         self.seed = seed
         self.group = max(int(group), 1)
         self.device = torch.device(device)
+        self.batch = global_batch // dp.world_size()
         use = {k: v for k, v in _source_arrays(split).items()
                if not keys or k in keys}
         memo = getattr(split.source, "_device_arrays", None)
@@ -375,7 +384,7 @@ class DeviceDataPipeline:
     def _assemble(self, idx: np.ndarray, parts: int) -> list[dict]:
         i = torch.from_numpy(np.asarray(idx, np.int32)).to(self.device)
         gathered = {k: self._gather(k, i) for k in self.ds}
-        split = {k: torch.split(v, self.global_batch)
+        split = {k: torch.split(v, self.batch)
                  for k, v in gathered.items()}
         return [{k: split[k][p] for k in split} for p in range(parts)]
 
@@ -386,7 +395,7 @@ class DeviceDataPipeline:
         for idx in self.split.iter_epoch_indices(
                 self.global_batch, shuffle=self.shuffle, seed=self.seed,
                 epoch=epoch):
-            pending.append(idx)
+            pending.append(dp.host_slice(idx))
             if len(pending) == self.group:
                 flat = np.concatenate(pending)
                 pending = []
@@ -455,6 +464,7 @@ class Pipeline:
         self.depth = depth
         self.group = max(int(group), 1)
         self.device = torch.device(device)
+        self.batch = global_batch // dp.world_size()
         self.h2d_bytes = 0
         self.h2d_s = 0.0
         self.stage_s = 0.0
@@ -467,8 +477,8 @@ class Pipeline:
         for batch in self.split.iter_epoch(
                 self.global_batch, shuffle=self.shuffle, seed=self.seed,
                 epoch=epoch):
-            pending.append({k: v for k, v in batch.items()
-                            if not self.keys or k in self.keys})
+            pending.append(dp.host_slice({k: v for k, v in batch.items()
+                                          if not self.keys or k in self.keys}))
             if len(pending) == self.group:
                 yield _stack(pending)
                 pending = []
@@ -512,9 +522,9 @@ class Pipeline:
     def _place(self, host: dict) -> list[dict]:
         rows = len(next(iter(host.values())))
         placed = place_rows(self._to_device(host), self.split.device_transform)
-        parts = {k: torch.split(v, self.global_batch) for k, v in placed.items()}
+        parts = {k: torch.split(v, self.batch) for k, v in placed.items()}
         return [{k: parts[k][p] for k in parts}
-                for p in range(rows // self.global_batch)]
+                for p in range(rows // self.batch)]
 
     def epoch(self, epoch: int) -> Iterator[dict]:
         """Device batches for one epoch, in ``Split.iter_epoch`` order."""

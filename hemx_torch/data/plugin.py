@@ -7,14 +7,13 @@ port's own ``hemx_torch.data`` modules for ``DataPlugin`` subclasses, as
 ``hemx`` scans ``hemx.data``. ``get_dataset_tensors`` is the assembly
 entry: it converts the raw files when the records are missing, then
 applies ``--resize`` and ``--grayscale``, in the reference's order.
-
-``celeb`` and ``coco`` are not ported: their codecs need PIL (JPEG, and
-``ImageDraw`` polygon fills for coco's masks); asking for them raises,
-naming the ROADMAP item.
+JPEG images (celeb, coco) and coco's polygon masks need Pillow, imported
+when such a file is first decoded or drawn.
 """
 
 from __future__ import annotations
 
+import fcntl
 import importlib
 import os
 import pkgutil
@@ -28,16 +27,6 @@ _REGISTRY: dict[str, type] = {}
 _SCANNED = False
 _NOT_PLUGINS = ("plugin", "pipeline", "tfrecord", "imageio")
 
-#: hemx datasets the port does not have yet -> why, and where it is queued
-UNPORTED = {
-    name: (f"dataset '{name}' is not ported to hemx_torch yet: {why} "
-           f"(ROADMAP, queue 1: celeb and coco)")
-    for name, why in (("celeb", "its images are JPEG, which the port cannot "
-                                "decode without PIL"),
-                      ("coco", "its images are JPEG and its masks are PIL "
-                               "ImageDraw polygon fills"))}
-
-
 # protobuf feature helpers (hemx.data.plugin)
 def bytes_feature(value: bytes) -> bytes:
     return proto.feature_bytes([value])
@@ -45,6 +34,10 @@ def bytes_feature(value: bytes) -> bytes:
 
 def int64_feature(*values: int) -> bytes:
     return proto.feature_int64(values)
+
+
+def float_feature(*values: float) -> bytes:
+    return proto.feature_float(values)
 
 
 class DataPlugin:
@@ -117,26 +110,46 @@ def available_datasets() -> list[str]:
 
 
 def unknown_dataset_message(name: str) -> str:
-    return UNPORTED.get(name, f"unknown dataset '{name}'; available: "
-                              f"{available_datasets()}")
+    return f"unknown dataset '{name}'; available: {available_datasets()}"
 
 
-def get_dataset_tensors(args) -> dict:
-    """Prepare the dataset if its records are missing (convert the raw
-    files in ``--raw_dataset_dir``, downloading them first where the plugin
-    can) and return its splits, resized then converted to grey as the
-    flags ask."""
+def prepare_dataset(args) -> type:
+    """The dataset's plugin, after converting the raw files in
+    ``--raw_dataset_dir`` into records when ``--dataset_dir`` has none
+    (downloading them first where the plugin can).
+
+    Processes that prepare one ``--dataset_dir`` at once (the ranks of a
+    group) take turns on an exclusive lock of that directory: one
+    converts, and the others wait for it outside any collective, so a
+    conversion longer than the group's timeout fails no rank. A plugin
+    with no records on disk (synthetic) needs no lock."""
     cls = get_dataset(args.dataset)
     if cls is None:
         raise ValueError(unknown_dataset_message(args.dataset))
     storage = os.path.join(args.dataset_dir, cls.name)
-    if not cls.check_prepared_datasets(storage):
-        if not cls.check_raw_datasets(args.raw_dataset_dir):
-            term.message(f"Downloading raw dataset for '{cls.name}'...")
-            cls.download(args.raw_dataset_dir)
-        term.message(f"Converting '{cls.name}' to TFRecord...")
-        cls.convert_to_tfrecord(args.raw_dataset_dir, storage)
-    splits = cls.get_datasets(args)
+    # records half written by another process may pass the check: only an
+    # absent storage directory is read without the lock
+    if not os.path.isdir(storage) and cls.check_prepared_datasets(storage):
+        return cls
+    os.makedirs(args.dataset_dir, exist_ok=True)
+    fd = os.open(args.dataset_dir, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        if not cls.check_prepared_datasets(storage):
+            if not cls.check_raw_datasets(args.raw_dataset_dir):
+                term.message(f"Downloading raw dataset for '{cls.name}'...")
+                cls.download(args.raw_dataset_dir)
+            term.message(f"Converting '{cls.name}' to TFRecord...")
+            cls.convert_to_tfrecord(args.raw_dataset_dir, storage)
+    finally:
+        os.close(fd)  # releases the lock
+    return cls
+
+
+def get_dataset_tensors(args) -> dict:
+    """Prepare the dataset (:func:`prepare_dataset`) and return its
+    splits, resized then converted to grey as the flags ask."""
+    splits = prepare_dataset(args).get_datasets(args)
     # reference input-layer order: resize, then grayscale (train.py:226-231)
     if getattr(args, "resize", None):
         from hemx_torch.data.pipeline import resize_images

@@ -24,6 +24,7 @@ import sys
 from hemx_torch import cli
 from hemx_torch.config import init_working_dir
 from hemx_torch.models.plugin import get_model
+from hemx_torch.parallel import dp
 from hemx_torch.utils import terminal as term
 
 
@@ -33,7 +34,8 @@ def run(argv=None) -> dict:
     from hemx_torch.train import loop
 
     args, device, _, splits = cli.build(argv)
-    init_working_dir(args)
+    if dp.is_primary():
+        init_working_dir(args)
 
     term.message("Phase 1: training mean_depth_estimator...")
     est_args = copy.copy(args)

@@ -34,6 +34,7 @@ from hemx_torch.ops.activations import lrelu
 from hemx_torch.ops.images import colorize
 from hemx_torch.ops.initializers import xavier_uniform
 from hemx_torch.ops.layers import commit_moving_stats
+from hemx_torch.parallel import dp
 from hemx_torch.train.optimizers import Optimizer, make_transform
 
 CHANNELS = (6, 12, 24, 48, 192, 384)
@@ -142,7 +143,8 @@ class Artist(ModelPlugin):
         opt.step(torch.autograd.grad(y_loss, list(opt.params.values())))
         self._commit(N, ms_e, ms_x, ms_y)
         y_loss = y_loss.detach()
-        return {"y_loss": y_loss, "y_hat_rmse": torch.sqrt(y_loss)}
+        return {"y_loss": y_loss,
+                "y_hat_rmse": torch.sqrt(dp.mean_over_ranks(y_loss))}
 
     def x_step(self, ts: common.TrainState, batch: dict) -> dict:
         """The x decoder on the x loss; ``step`` + 1."""
@@ -178,7 +180,7 @@ class Artist(ModelPlugin):
         x_hat, y_hat = self.predict(ts, batch)
         y_loss = mse01(y, y_hat)
         return {"x_loss": mse01(x, x_hat), "y_loss": y_loss,
-                "y_hat_rmse": torch.sqrt(y_loss)}
+                "y_hat_rmse": torch.sqrt(dp.mean_over_ranks(y_loss))}
 
     def write_summaries(self, writer, step: int, ts: common.TrainState,
                         batch: dict) -> None:

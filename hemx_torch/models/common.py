@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from hemx_torch.convert import jax_view
+from hemx_torch.parallel import dp
 
 # noise streams drawn at one (key, step)
 TRAIN, EVAL, SAMPLE, REPORT, DIAG = range(5)
@@ -64,12 +65,22 @@ def draw_noise(gen: torch.Generator, batch: int, latent: int, *,
                alpha: bool = False, key: str = "z") -> dict:
     """One substep's noise: ``key`` (B, latent) standard normal (GAN ``z``,
     VAE ``eps``), plus the GP's ``alpha`` (B, 1) uniform for an IWGAN
-    critic substep (``hemx/models/gan.py:229-231,254,289-291``)."""
+    critic substep (``hemx/models/gan.py:229-231,254,289-291``). In a
+    process group each draw is made for the global batch and this rank
+    keeps its rows, so every rank's generator stays in step."""
     dev = gen.device
-    out = {key: torch.randn((batch, latent), generator=gen, device=dev)}
+    rows = batch * dp.world_size()
+    out = {key: torch.randn((rows, latent), generator=gen, device=dev)}
     if alpha:
-        out["alpha"] = torch.rand((batch, 1), generator=gen, device=dev)
-    return out
+        out["alpha"] = torch.rand((rows, 1), generator=gen, device=dev)
+    return {k: dp.slice_rows(v) for k, v in out.items()}
+
+
+def seam(noise: dict, device) -> dict:
+    """Noise handed in through the seam, drawn for the global batch (the
+    whole of it without a process group), as this rank's rows on
+    ``device``."""
+    return {k: dp.slice_rows(v.to(device)) for k, v in noise.items()}
 
 
 def _path(prefix: str, name: str) -> str:

@@ -48,6 +48,7 @@ from hemx_torch.models.plugin import ModelPlugin
 from hemx_torch.ops import losses as L
 from hemx_torch.ops.images import colorize
 from hemx_torch.ops.layers import commit_moving_stats
+from hemx_torch.parallel import dp
 from hemx_torch.train.optimizers import (Optimizer, clip_params,
                                          make_transform)
 
@@ -55,11 +56,14 @@ from hemx_torch.train.optimizers import (Optimizer, clip_params,
 def draw_noise(net: nn.Module, gen: torch.Generator, x: torch.Tensor) -> dict:
     """Every draw ``net.noise_draws`` names for input ``x`` (N, C, H, W),
     in its order: uniform noise in a :class:`Uniform`'s range, a boolean
-    mask for a :class:`Keep`; ``{}`` for a net without noise."""
+    mask for a :class:`Keep`; ``{}`` for a net without noise. In a process
+    group each is drawn for the global batch and this rank keeps its
+    rows."""
     n, _, h, w = x.shape
     out = {}
-    for name, d in net.noise_draws(n, h, w).items():
+    for name, d in net.noise_draws(n * dp.world_size(), h, w).items():
         u = torch.rand(d.shape, generator=gen, device=gen.device)
+        u = dp.slice_rows(u)
         out[name] = u < d.p if isinstance(d, Keep) else u * (d.hi - d.lo) + d.lo
     return out
 
@@ -226,7 +230,7 @@ class ConditionalGanBase(ModelPlugin):
             if noise is None:  # G's input has the image's N, H and W
                 nz = draw_noise(ts.nets["generator"], gen, batch["image"])
             else:
-                nz = {k: v.to(self.device) for k, v in noise[i].items()}
+                nz = common.seam(noise[i], self.device)
             m = step(ts, batch, nz)
             flags = common.and_flags(flags, m.pop("grad_finite", {}))
             metrics.update(m)
@@ -236,7 +240,7 @@ class ConditionalGanBase(ModelPlugin):
 
     def _noise(self, ts, stream: int, prep: dict, noise):
         if noise is not None:
-            return {k: v.to(self.device) for k, v in noise.items()}
+            return common.seam(noise, self.device)
         return draw_noise(ts.nets["generator"],
                           common.generator(ts, stream, self.device),
                           prep["g_input"])

@@ -246,7 +246,7 @@ class GanModel(ModelPlugin):
                     gen, batch["image"].shape[0], self.args.latent_size,
                     alpha=critic and self.model_type == "iwgan")
             else:
-                nz = {k: v.to(self.device) for k, v in noise[i].items()}
+                nz = common.seam(noise[i], self.device)
             step = (self.gan_step if self.model_type == "gan"
                     else self.d_step if critic else self.g_step)
             m = step(ts, batch, nz)
@@ -264,11 +264,11 @@ class GanModel(ModelPlugin):
         fake batch separately. ``noise``: optional ``{"z"}``."""
         G, D = ts.nets["generator"], ts.nets["discriminator"]
         x = 2.0 * (batch["image"] - 0.5)
-        if noise is None:
-            noise = common.draw_noise(
-                common.generator(ts, common.EVAL, self.device), x.shape[0],
-                self.args.latent_size)
-        g, _ = G(noise["z"].to(self.device))
+        noise = (common.draw_noise(
+            common.generator(ts, common.EVAL, self.device), x.shape[0],
+            self.args.latent_size) if noise is None
+            else common.seam(noise, self.device))
+        g, _ = G(noise["z"])
         d_real, d_fake = self._real_fake(D, x, g, commit=False)
         return {"g_loss": self._g_loss(d_fake),
                 "d_loss": self._d_loss(d_real, d_fake)}

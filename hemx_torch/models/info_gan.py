@@ -185,7 +185,7 @@ class InfoGan(ModelPlugin):
         for i, step in enumerate((self.d_step, self.g_step, self.q_step)):
             batch = next(stream)
             z = (draw_noise(ts.nets["generator"], gen, batch["image"])["z"]
-                 if noise is None else noise[i]["z"].to(self.device))
+                 if noise is None else common.seam(noise[i], self.device)["z"])
             metrics.update(step(ts, batch, z))
         return ts, metrics
 
@@ -197,7 +197,7 @@ class InfoGan(ModelPlugin):
         z = (draw_noise(N["generator"],
                         common.generator(ts, common.EVAL, self.device),
                         x)["z"] if noise is None
-             else noise["z"].to(self.device))
+             else common.seam(noise, self.device)["z"])
         g, _ = N["generator"](x, z)
         d_fake = N["discriminator"](g)[0]
         return {"g_loss": g_loss_of(d_fake),

@@ -75,9 +75,9 @@ class VaeModel(ModelPlugin):
 
     def _eps(self, ts, stream: int, n: int, noise) -> torch.Tensor:
         if noise is None:
-            noise = common.draw_noise(common.generator(ts, stream, self.device),
-                                      n, self.args.latent_size, key="eps")
-        return noise["eps"].to(self.device)
+            return common.draw_noise(common.generator(ts, stream, self.device),
+                                     n, self.args.latent_size, key="eps")["eps"]
+        return common.seam(noise, self.device)["eps"]
 
     @staticmethod
     def _forward(nets, x, eps, capture=None):

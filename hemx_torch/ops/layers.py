@@ -49,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hemx_torch.ops.initializers import xavier_uniform
+from hemx_torch.parallel import dp
 
 CL = torch.channels_last
 
@@ -139,7 +140,9 @@ def commit_moving_stats(net: nn.Module, stats: dict) -> None:
 
 class BatchNorm(nn.Module):
     """Batch norm over every axis but channels: (B, F) -> axis 0, NCHW ->
-    (0, 2, 3). TF contrib defaults (decay 0.999, eps 1e-3, center only)."""
+    (0, 2, 3). TF contrib defaults (decay 0.999, eps 1e-3, center only).
+    In a process group the statistics (and so the moving ones) are the
+    global batch's, reduced differentiably over the ranks."""
 
     DECAY = 0.999
     EPS = 1e-3
@@ -153,8 +156,20 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor):
         dims = (0,) if x.dim() == 2 else (0, 2, 3)
         shape = (1, -1) if x.dim() == 2 else (1, -1, 1, 1)
-        mean = x.mean(dims)
-        var = x.var(dims, correction=0)
+        if dp.active():
+            # the global batch's statistics, as hemx's sharded jit takes
+            # them: the mean, then the mean of the centred squares, each
+            # summed in float32 and rounded once to x's dtype, as x.mean
+            # and x.var round
+            n = x.numel() // x.shape[1] * dp.world_size()
+            f32 = torch.float32
+            mean = (dp.global_sum(x.sum(dims, dtype=f32)) / n).to(x.dtype)
+            centred = x - mean.view(shape)
+            var = (dp.global_sum((centred * centred).sum(dims, dtype=f32))
+                   / n).to(x.dtype)
+        else:
+            mean = x.mean(dims)
+            var = x.var(dims, correction=0)
         y = (x - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.EPS)
         y = y + self.beta.view(shape)
         with torch.no_grad():

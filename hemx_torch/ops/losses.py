@@ -7,6 +7,11 @@ loss. hemx pins ``1 - p`` behind ``lax.optimization_barrier`` because XLA
 would fold ``eps + (1 - p)`` into ``(eps + 1) - p``; eager PyTorch evaluates
 in the written order and needs no barrier. Do not ``torch.compile`` these
 functions: a compiler may reassociate the sum the same way.
+
+In a process group, what hemx reduces over the global batch beyond a
+per-sample mean is reduced over the ranks (``hemx_torch.parallel.dp``):
+the sum-reduced VAE losses, the mean under ``rmse``'s root and the GP's
+whole-batch norm.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from hemx_torch.parallel import dp
 
 
 def guarded_one_minus(p: torch.Tensor) -> torch.Tensor:
@@ -39,7 +46,7 @@ def bernoulli_recon_loss(x: torch.Tensor, x_hat: torch.Tensor,
     """Sum-reduced Bernoulli reconstruction loss (reference:
     models/vae.py:75-79); the second guard is ``eps + (1 - x_hat)``."""
     ll = x * torch.log(eps + x_hat) + (1.0 - x) * torch.log(eps + (1.0 - x_hat))
-    return -torch.sum(ll)
+    return -dp.global_sum(torch.sum(ll))
 
 
 def kl_gaussian_loss(z_mean: torch.Tensor, z_stddev: torch.Tensor,
@@ -48,7 +55,7 @@ def kl_gaussian_loss(z_mean: torch.Tensor, z_stddev: torch.Tensor,
     parameterization (reference: models/vae.py:81-83)."""
     term = (torch.square(z_mean) + torch.square(z_stddev)
             - torch.log(eps + torch.square(z_stddev)) - 1.0)
-    return 0.5 * torch.sum(term)
+    return 0.5 * dp.global_sum(torch.sum(term))
 
 
 def gan_g_loss(d_fake: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -88,7 +95,7 @@ def sigmoid_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def rmse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Root mean squared error (reference: hem/ops/losses.py:10-11)."""
-    return torch.sqrt(torch.mean((a - b) ** 2))
+    return torch.sqrt(dp.global_mean((a - b) ** 2))
 
 
 def rmse_scale_invariant(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
@@ -120,5 +127,5 @@ def gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
         slopes = torch.sqrt(torch.sum(grads.reshape(grads.shape[0], -1) ** 2,
                                       dim=1))
     else:
-        slopes = torch.sqrt(torch.sum(grads ** 2))
+        slopes = torch.sqrt(dp.global_sum(torch.sum(grads ** 2)))
     return torch.mean((slopes - 1.0) ** 2)

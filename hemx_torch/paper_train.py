@@ -11,8 +11,8 @@ train and validate splits, in order (paper_train.py:43-60), writes
 ``--dir`` (byte-equal to ``paper_train.py``'s), and hands the mean image to
 the model (``model.mean_image``, the y_mean baseline of its Eigen
 summaries). Then it trains as ``python -m hemx_torch.cli`` does, with its
-flags, exit codes (2 for an unknown model, 255 for a non-finite gradient)
-and last line.
+flags (``--n_devices`` included: rank 0 writes the files), exit codes (2
+for an unknown model, 255 for a non-finite gradient) and last line.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import numpy as np
 
 from hemx_torch import cli
 from hemx_torch.config import init_working_dir
+from hemx_torch.parallel import dp
 from hemx_torch.summaries.montage import to_uint8
 from hemx_torch.summaries.png import encode_png
 from hemx_torch.utils import terminal as term
@@ -79,12 +80,14 @@ def run(argv=None) -> dict:
     """Build as the CLI does, write the moments, train. The result holds
     the CLI's keys plus "moments_s" (host seconds of the moments)."""
     args, device, model, splits = cli.build(argv)
-    init_working_dir(args)
+    if dp.is_primary():
+        init_working_dir(args)
     term.message("Computing dataset depth statistics...")
     t0 = time.perf_counter()
     mean_img, var_img = dataset_depth_moments(splits, args)
     if mean_img is not None:
-        write_moments(args.dir, mean_img, var_img)
+        if dp.is_primary():
+            write_moments(args.dir, mean_img, var_img)
         if hasattr(model, "mean_image"):
             model.mean_image = mean_img.astype(np.float32)
     moments_s = time.perf_counter() - t0

@@ -13,6 +13,7 @@ import time
 
 import numpy as np
 
+from hemx_torch.parallel import dp
 from hemx_torch.summaries import proto
 from hemx_torch.summaries.crc32c import masked_crc32c
 from hemx_torch.summaries.montage import montage, to_uint8
@@ -132,13 +133,24 @@ def image_value(tag: str, img: np.ndarray) -> bytes:
                                      colorspace=arr.shape[2])
 
 
+class _NullWriter:
+    """An EventsWriter that writes nothing (ranks other than 0)."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
 class SummaryWriterSet:
-    """train/validate/test writer triple (reference: hem/util/misc.py:115-125)."""
+    """train/validate/test writer triple (reference: hem/util/misc.py:115-125).
+    In a process group only rank 0 writes; the others hold writers that
+    write nothing."""
 
     PHASES = ("train", "validate", "test")
 
     def __init__(self, workspace_dir: str):
-        self.writers = {p: EventsWriter(os.path.join(workspace_dir, p))
+        make = (EventsWriter if dp.is_primary()
+                else lambda _: _NullWriter())
+        self.writers = {p: make(os.path.join(workspace_dir, p))
                         for p in self.PHASES}
 
     def __getitem__(self, phase: str) -> EventsWriter:

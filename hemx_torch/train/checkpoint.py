@@ -19,6 +19,7 @@ import os
 import re
 from typing import Optional
 
+from hemx_torch.parallel import dp
 from hemx_torch.train import msgpack
 
 _CKPT_RE = re.compile(r"^checkpoint-(\d+)\.msgpack$")
@@ -44,9 +45,13 @@ class CheckpointManager:
         ckpts = self.checkpoints()
         return ckpts[-1][1] if ckpts else None
 
-    def save(self, tree: dict, epoch: int) -> str:
+    def save(self, tree: dict, epoch: int) -> Optional[str]:
         """Write ``tree`` (nested dicts of numpy arrays and scalars) as
-        ``checkpoint-<epoch>.msgpack``; returns the path."""
+        ``checkpoint-<epoch>.msgpack``; returns the path. In a process
+        group only rank 0 writes (the others return None): every rank holds
+        the same state."""
+        if not dp.is_primary():
+            return None
         path = os.path.join(self.directory, f"checkpoint-{epoch}.msgpack")
         data = msgpack.packb(tree)
         tmp = path + ".tmp"

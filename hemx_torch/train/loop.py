@@ -30,6 +30,15 @@ otherwise. The input shape and the summary batch come from the train
 split's first host batch in order (after its host transform, e.g. NYUv2's
 crop), placed on the device.
 
+Data parallel (``--n_devices``, a process group of W ranks): the global
+batch is ``batch_size * W``, as in hemx; it sets the batches per epoch and
+images/s, and each rank trains on its rows of it. The reported losses
+(history, summaries, validation and test) are their mean over the ranks
+(``hemx_torch.parallel.dp.reduce_metrics``), the same on every rank. Only
+rank 0 writes options, checkpoints, summaries and console lines; its
+summaries see the whole global summary batch, computed on rank 0 alone
+(``dp.local``). Every rank restores the same checkpoint on resume.
+
 Each call's losses and wall time are recorded; the time is taken on the
 host clock around the train call and a device synchronize, so it covers the
 call's device work and nothing else (summaries, checkpoints and validation
@@ -49,6 +58,8 @@ from hemx_torch import convert
 from hemx_torch.config import init_working_dir
 from hemx_torch.data.pipeline import DeviceDataPipeline, Pipeline, place_batch
 from hemx_torch.models import common
+from hemx_torch.ops.input_kernels import LAUNCHES
+from hemx_torch.parallel import dp
 from hemx_torch.summaries.events import SummaryWriterSet
 from hemx_torch.train.checkpoint import CheckpointManager
 from hemx_torch.utils import terminal as term
@@ -67,13 +78,18 @@ def _continuous_stream(pipeline, start_epoch: int = 0):
         e += 1
 
 
+def global_batch(args) -> int:
+    """``--batch_size`` rows per rank, times the ranks."""
+    return args.batch_size * dp.world_size()
+
+
 def _cached(split, args, device, keys, *, shuffle: bool, seed: int,
             group: int = 1):
     """The split's DeviceDataPipeline, or None when it must stream."""
     if not args.device_data_cache:
         return None
     return DeviceDataPipeline.maybe(
-        split, args.batch_size, device=device, keys=keys, shuffle=shuffle,
+        split, global_batch(args), device=device, keys=keys, shuffle=shuffle,
         seed=seed, budget_mb=args.device_cache_mb, group=group)
 
 
@@ -88,7 +104,7 @@ def _pipeline(split, args, device, keys, *, group: int):
         return pipeline
     term.message(f"Input: streaming pipeline ({group} batch(es) per H2D "
                  f"copy)")
-    return Pipeline(split, args.batch_size, device=device, keys=keys,
+    return Pipeline(split, global_batch(args), device=device, keys=keys,
                     shuffle=args.shuffle, seed=args.seed, group=group)
 
 
@@ -104,25 +120,35 @@ def train(model, splits, args, device) -> dict:
     checkpoint's path, epoch and step), "timings" (seconds of each
     checkpoint save, restore and summary write, checkpoint bytes, and the
     train split's materialization seconds, None for a source that was in
-    memory)}."""
+    memory), "input_kernel_launches" and "grad_all_reduce" (this run's
+    launches of the input kernel, and the collectives and bytes of its
+    gradient all-reduces)}."""
     device = torch.device(device)
+    launches, reductions = dict(LAUNCHES), dict(dp.GRAD_REDUCTIONS)
     split = splits["train"]
-    batches = split.batches_per_epoch(args.batch_size)
+    batches = split.batches_per_epoch(global_batch(args))
     if args.epoch_size > 0:
         batches = min(batches, args.epoch_size)
     if batches == 0:
         raise ValueError(f"dataset ({split.count}) smaller than one global "
-                         f"batch ({args.batch_size})")
+                         f"batch ({global_batch(args)})")
     pipeline = _pipeline(split, args, device, model.batch_keys,
                          group=model.batches_per_train_call())
-    init_working_dir(args)
+    if dp.is_primary():
+        init_working_dir(args)
     ckpt = CheckpointManager(args.dir, args.max_to_keep)
     writers = SummaryWriterSet(args.dir)
     try:
-        return _train(model, splits, args, device, pipeline, batches, ckpt,
-                      writers)
+        result = _train(model, splits, args, device, pipeline, batches, ckpt,
+                        writers)
     finally:
         writers.close()
+    # this run's own, not the process's (experimental trains twice)
+    result["input_kernel_launches"] = {k: v - launches[k]
+                                       for k, v in LAUNCHES.items()}
+    result["grad_all_reduce"] = {k: v - reductions[k]
+                                 for k, v in dp.GRAD_REDUCTIONS.items()}
+    return result
 
 
 def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
@@ -130,15 +156,18 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
     timings = {"save_s": [], "restore_s": [], "summary_s": [],
                "checkpoint_bytes": [],
                "materialize_s": getattr(split.source, "materialize_s", None)}
-    host_batch = next(split.iter_epoch(args.batch_size, shuffle=False))
-    summary_batch = place_batch(host_batch, split, device, model.batch_keys)
+    primary = dp.is_primary()
+    host_batch = next(split.iter_epoch(global_batch(args), shuffle=False))
+    summary_batch = (place_batch(host_batch, split, device, model.batch_keys)
+                     if primary else None)
     ts = model.init_state(model.input_shape(host_batch), args.seed)
 
     def save(epoch: int) -> None:
         t0 = time.perf_counter()
         path = ckpt.save(convert.to_checkpoint(ts, epoch), epoch)
-        timings["save_s"].append(time.perf_counter() - t0)
-        timings["checkpoint_bytes"].append(os.path.getsize(path))
+        if path:  # rank 0 wrote it
+            timings["save_s"].append(time.perf_counter() - t0)
+            timings["checkpoint_bytes"].append(os.path.getsize(path))
 
     current_epoch, resumed = 0, None
     latest = ckpt.latest()
@@ -150,6 +179,8 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
         resumed = {"path": latest, "epoch": current_epoch, "step": ts.step}
         term.message(f"Resumed from {latest} (epoch {current_epoch}, step "
                      f"{ts.step})")
+    # no rank reads the directory after rank 0 may write to it
+    dp.barrier(device)
     epochs = str(args.epochs)
     max_epochs = (current_epoch + int(epochs[1:]) if epochs.startswith("+")
                   else int(epochs))
@@ -157,6 +188,12 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
 
     def write_train_summary(step: int, metrics: dict | None = None,
                             end_of_epoch: bool = False) -> None:
+        if primary:
+            with dp.local():
+                _write_train_summary(step, metrics, end_of_epoch)
+
+    def _write_train_summary(step: int, metrics: dict | None,
+                             end_of_epoch: bool) -> None:
         t0 = time.perf_counter()
         wr = writers["train"]
         if metrics:
@@ -189,7 +226,8 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
     term.message("Starting training...")
     for epoch in range(current_epoch, max_epochs):
         iterator = range(batches)
-        if tqdm is not None:
+        show = tqdm is not None and primary
+        if show:
             iterator = tqdm(iterator, desc=f"Epoch {epoch + 1:3d}",
                             unit="batch", leave=False)
         avg, shown, running = MovingAverage(), {}, {}
@@ -202,7 +240,8 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
         prof_start = min(10, max(batches - 2, 0))
         prof_stop = min(prof_start + 10, batches - 1)
         for i in iterator:
-            if args.profile and epoch == current_epoch and i == prof_start:
+            if (args.profile and primary and epoch == current_epoch
+                    and i == prof_start):
                 prof = _start_profile(device)
             t0 = time.perf_counter()
             ts, metrics = model.train(ts, stream)
@@ -211,14 +250,14 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
             if prof is not None and i == prof_stop:
                 _stop_profile(prof, args.dir)
                 prof = None
-            host = common.host_scalars(metrics)
+            host = common.host_scalars(dp.reduce_metrics(metrics))
             if args.check_numerics:
                 common.raise_on_bad_grads(host)
             losses = {k: v for k, v in host.items() if k != "grad_finite"}
             history.append({**losses, "seconds": seconds})
             if i % fetch_every == 0 or i % cadence == 0 or i == batches - 1:
                 running = avg.update(losses)
-                if tqdm is not None:
+                if show:
                     iterator.set_postfix(term.delta_postfix(running, shown))
                     shown = dict(running)
             if i % cadence == 0:
@@ -260,17 +299,21 @@ def inference(model, ts, split, args, device, writer, step: int, *,
               label: str = "Validation") -> dict:
     """Average eval losses over a split's batches (in order) and write one
     summary. The batches come from the device cache when the split
-    qualifies, else host batch by host batch."""
+    qualifies, else host batch by host batch (in a process group, this
+    rank's rows of each global batch; the losses are the ranks' mean)."""
     feeder = _cached(split, args, device, model.batch_keys, shuffle=False,
                      seed=0)
     if feeder is not None:
         batches = feeder.epoch(0)
     else:
-        batches = (place_batch(b, split, device, model.batch_keys)
-                   for b in split.iter_epoch(args.batch_size, shuffle=False))
+        batches = (place_batch(dp.host_slice(b), split, device,
+                               model.batch_keys)
+                   for b in split.iter_epoch(global_batch(args),
+                                             shuffle=False))
     avg, running = MovingAverage(), {}
     for batch in batches:
-        running = avg.update(common.host_scalars(model.eval_losses(ts, batch)))
+        running = avg.update(common.host_scalars(
+            dp.reduce_metrics(model.eval_losses(ts, batch))))
     if running:
         writer.scalars({f"losses/{k}": v for k, v in running.items()}, step)
         term.message(f"{label}: " + ", ".join(f"{k}={v:.5g}"
@@ -282,10 +325,17 @@ def summarize(result: dict, batch_size: int, device) -> dict:
     """Step count, median call time and images/s of a run. The first call
     (cuDNN algorithm selection, kernel compilation) is left out of both
     when there is more than one; images/s is calls x batch / seconds, as
-    ``bench.py`` defines it."""
+    ``bench.py`` defines it, ``batch_size`` the global batch. It counts the
+    input kernel's launches of this run (none on the CPU, where its plain
+    version runs), and in a process group the gradient all-reduces this
+    rank ran in it and their bytes."""
     secs = [r["seconds"] for r in result["history"]]
     out = {"device": str(device), "step": result["train_state"].step,
-           "epoch": result["epoch"], "calls": len(secs)}
+           "epoch": result["epoch"], "calls": len(secs),
+           "global_batch": batch_size, "processes": dp.world_size(),
+           "input_kernel_launches": result["input_kernel_launches"]}
+    if dp.active():
+        out["grad_all_reduce"] = result["grad_all_reduce"]
     if secs:
         steady = secs[1:] if len(secs) > 1 else secs
         out.update(first_call_s=secs[0],

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from hemx_torch.parallel import dp
+
 
 class Moments(dict):
     """One parameter-shaped tree of an optimizer state:
@@ -207,6 +209,10 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads) -> None:
+        """In a process group ``grads`` are first averaged over the ranks,
+        in place (every model's updates pass here, so every rank applies
+        the same update, WGAN's clipping after it included)."""
+        dp.all_reduce_grads(grads)
         g = dict(zip(self.params, grads))
         updates, self.state = self.tx.update(g, self.state, self._values())
         for n, p in self.params.items():

@@ -5,8 +5,14 @@ from __future__ import annotations
 
 import sys
 
+from hemx_torch.parallel import dp
+
+
 def message(text: str, stream=None) -> None:
-    """Print ``text``, bold green on a terminal."""
+    """Print ``text``, bold green on a terminal; in a process group only
+    rank 0 prints."""
+    if not dp.is_primary():
+        return
     stream = stream or sys.stdout
     if stream.isatty():
         text = f"\033[1m\033[32m{text}\033[0m"

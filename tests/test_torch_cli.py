@@ -70,7 +70,7 @@ def test_port_does_not_load_jax():
             "import hemx_torch.models.pix2pix, hemx_torch.models.artist\n"
             "import hemx_torch.models.info_gan, hemx_torch.models.fake\n"
             "from hemx_torch.data.plugin import available_datasets\n"
-            "assert len(available_datasets()) == 5  # imports every plugin\n"
+            "assert len(available_datasets()) == 7  # imports every plugin\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'hemx',\n"
             "        'PIL', 'matplotlib', 'paper_train', 'experimental',\n"
@@ -148,6 +148,26 @@ def test_test_plugin_trains_through_the_cli(tmp_path):
     assert res["train_state"].step == 0 and res["epoch"] == 1
 
 
+def test_summary_counts_its_own_run(tmp_path, monkeypatch):
+    """The run's input-kernel launches and gradient all-reduces are its
+    own, not the process's: counts an earlier run left (set by hand here)
+    do not show. On the CPU the kernel's plain version runs, so the run
+    launches it no time."""
+    from hemx_torch import cli
+    from hemx_torch.ops import input_kernels as K
+    from hemx_torch.parallel import dp
+    monkeypatch.setitem(K.LAUNCHES, "gather_u8_normalize", 7)
+    monkeypatch.setitem(dp.GRAD_REDUCTIONS, "collectives", 5)
+    res = cli.run(["--model", "cnn", "--dataset", "synthetic",
+                   "--synthetic_u8", "--synthetic_count", "8",
+                   "--synthetic_shape", "8", "8", "3", "--batch_size", "4",
+                   "--latent_size", "4", "--epochs", "1", "--device", "cpu",
+                   "--seed", "1", "--dir", str(tmp_path)])
+    assert res["summary"]["input_kernel_launches"] == {
+        "gather_u8_normalize": 0}
+    assert res["grad_all_reduce"] == {"collectives": 0, "bytes": 0}
+
+
 def test_cli_default_model_is_cnn(tmp_path):
     """No ``--model``: the CNN autoencoder trains, as ``train.py`` does."""
     r = _run(["-m", "hemx_torch.cli", "--dataset", "synthetic",
@@ -215,10 +235,96 @@ def test_nyuv2_resize_flag_wins(tmp_path):
     assert a.resize == [20, 24] and a.random_crop == [8, 8]
 
 
-def test_cli_unported_dataset_exits_1(capsys):
+def test_cli_unported_dataset_exits_1(tmp_path):
+    """coco with its raw directories present but no files in them (so
+    nothing is downloaded): the conversion fails on the missing annotation
+    file, and the port exits 1 with the message hemx raises."""
+    from hemx.data.plugin import get_dataset_tensors
+    from tests.conftest import make_args
+    raw = tmp_path / "raw"
+    for d in ("train2014", "val2014", "test2014", "annotations"):
+        (raw / d).mkdir(parents=True)
+    with pytest.raises(FileNotFoundError) as want:
+        get_dataset_tensors(make_args(dataset="coco", raw_dataset_dir=str(raw),
+                                      dataset_dir=str(tmp_path / "h")))
+    r = _run(["-m", "hemx_torch.cli", "--dataset", "coco", "--device", "cpu",
+              "--raw_dataset_dir", str(raw), "--dataset_dir",
+              str(tmp_path / "p"), "--dir", str(tmp_path / "run")])
+    assert r.returncode == 1
+    assert str(want.value) in r.stderr
+    assert "instances_train2014.json" in str(want.value)
+
+
+HEMX_N_DEVICES_CONFIGS = ["gan", "wgan", "iwgan", "cnn", "vae",
+                          "paper/cgan/baseline", "paper/cgan/wgan",
+                          "paper/cgan/mean_adjusted", "paper/sampler/noise_x"]
+
+
+@pytest.mark.parametrize("config", HEMX_N_DEVICES_CONFIGS)
+def test_n_devices_configs_resolve_to_hemx_global_batch(config, tmp_path,
+                                                        capsys):
+    """hemx's configs that set ``n_devices`` parse without a warning to
+    hemx's ``n_devices``, and the port trains them at hemx's global batch,
+    ``batch_size * n_devices`` (1,024 for ``examples/gan.config``): in that
+    many gloo processes on the CPU, and on CUDA only where the host has the
+    GPUs (else hemx's refusal). The parent ran it at ``batch_size``."""
+    from hemx.config import parse_args as hemx_parse
     from hemx_torch import cli
-    assert cli.main(["--dataset", "coco", "--device", "cpu"]) == 1
-    assert "ROADMAP, queue 1: celeb and coco" in capsys.readouterr().err
+    from hemx_torch.config import parse_args
+    path = str(REPO / "examples" / f"{config}.config")
+    tail = ["--seed", "1", "--dir", str(tmp_path)]
+    want = hemx_parse(["@" + path] + tail)
+    capsys.readouterr()
+    got = parse_args(["@" + path, "--device", "cpu"] + tail)
+    assert "unknown and unused" not in capsys.readouterr().err
+    assert got.n_devices == want.n_devices == 2
+    assert cli.workers(got) == 2
+    global_batch = got.batch_size * cli.workers(got)
+    assert global_batch == want.batch_size * want.n_devices
+    if config == "gan":
+        assert global_batch == 1024
+    got.device = "cuda"
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(cli.CliError, match=(
+                r"^requested 2 devices but only \d+ available$")):
+            cli.workers(got)
+    else:
+        assert cli.workers(got) == 2
+
+
+def test_mesh_refusals_use_hemx_texts():
+    """More GPUs than the host has, and hemx's ``model`` and ``spatial``
+    axes: refused in hemx's words (the axes, which the port does not have,
+    naming their ROADMAP item), as errors, not warnings."""
+    import re as _re
+
+    from hemx.parallel.mesh import make_mesh
+    from hemx_torch import cli
+    from hemx_torch.config import parse_args
+    with pytest.raises(ValueError) as hemx_many:
+        make_mesh(9)
+    with pytest.raises(ValueError) as hemx_both:
+        make_mesh(0, model=2, spatial=2)
+    n = torch.cuda.device_count()
+    base = ["--dataset", "synthetic", "--dir", "unused", "--seed", "1"]
+    with pytest.raises(cli.CliError) as e:
+        cli.workers(parse_args(base + ["--n_devices", str(n + 1)]))
+    assert str(e.value) == _re.sub(r"\d+ devices but only \d+",
+                                   f"{n + 1} devices but only {n}",
+                                   str(hemx_many.value))
+    with pytest.raises(cli.CliError) as e:
+        cli.workers(parse_args(base + ["--model_parallel", "2",
+                                       "--spatial_parallel", "2"]))
+    assert str(e.value) == str(hemx_both.value)
+    for flag in ("--model_parallel", "--spatial_parallel"):
+        with pytest.raises(cli.CliError, match=(
+                f"^{flag} 2: .*ROADMAP, queue 1: the model and spatial "
+                f"axes")):
+            cli.workers(parse_args(base + [flag, "2", "--device", "cpu"]))
+    assert cli.main(base + ["--model_parallel", "4", "--device", "cpu"]) == 1
+    # one process asked to run two without a group to join
+    with pytest.raises(cli.CliError, match="runs 2 processes"):
+        cli.build(base + ["--n_devices", "2", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("config", ["a1", "ff.rmse", "experimental",

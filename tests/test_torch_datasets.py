@@ -460,15 +460,13 @@ def test_split_conversions_match_hemx(tmp_path, op):
 # --- registry ---------------------------------------------------------------
 
 def test_registry_lists_the_ported_datasets():
+    """The port's datasets are hemx's, each under its own name."""
+    from hemx.data.plugin import available_datasets as hemx_datasets
     from hemx_torch.data import plugin
-    assert plugin.available_datasets() == ["cifar", "floorplan", "mnist",
-                                           "nyuv2", "synthetic"]
+    assert plugin.available_datasets() == hemx_datasets()
+    assert {"celeb", "coco"} <= set(plugin.available_datasets())
     for name in plugin.available_datasets():
         assert plugin.get_dataset(name).name == name
-    for name in ("celeb", "coco"):
-        assert plugin.get_dataset(name) is None
-        with pytest.raises(ValueError, match="ROADMAP.*celeb and coco"):
-            plugin.get_dataset_tensors(make_args(dataset=name))
     with pytest.raises(ValueError, match="available"):
         plugin.get_dataset_tensors(make_args(dataset="nope"))
 

@@ -243,18 +243,15 @@ def test_adam_apply_matches_optax(setup):
 
 
 def test_unported_options_raise(setup, tmp_path):
-    """What the port still refuses: the datasets whose codecs need PIL
-    (ROADMAP: celeb and coco). A split that is not kept on the device
-    streams through the host Pipeline."""
+    """A split that is not kept on the device streams through the host
+    Pipeline (celeb and coco, once refused here, are ported:
+    tests/test_torch_celeb_coco.py)."""
     from hemx_torch import cli
     from hemx_torch.data.pipeline import Pipeline
     argv = ["--model", "iwgan", "--synthetic_u8",
             "--synthetic_count", "8", "--synthetic_shape", "16", "16", "3",
             "--batch_size", "4", "--latent_size", "8", "--n_disc_train", "1",
             "--epochs", "1", "--device", "cpu"]
-    for name in ("celeb", "coco"):
-        with pytest.raises(cli.CliError, match="ROADMAP.*celeb and coco"):
-            cli.run(argv + ["--dataset", name, "--dir", str(tmp_path)])
     for i, flags in enumerate((["--no-device_data_cache"],
                                ["--device_cache_mb", "0"])):
         res = cli.run(argv + ["--dataset", "synthetic", "--dir",
