@@ -176,6 +176,22 @@ prints its last line):
    --nproc_per_node 1 -m hemx_torch.cli`` (NCCL, world size 1): its median
    call beside phase 6's, the gradient bytes all-reduced per call, its
    input launches against their formula.
+18. The post-training tools: (a) card vs CPU on a tiny cnn and a tiny gan
+   run trained on the card (32 px, batch 8, ``--precision highest``): the
+   visualized net's captures at rtol 2e-3 / atol 2e-5, the bestfit ascent
+   from the same starts (first step rtol 1e-4 / atol 1e-5, 20 steps
+   within 2/255 normalized), the CNN's encoder and pixel features and the
+   FID from each side's; (b) ``hemx_torch.visualize --sample --timelapse
+   --activations --weights --bestfit`` on phase 6's bf16 IWGAN run and
+   phase 8's bf16 cnn run (each tool's seconds, every PNG decoded, the
+   input kernel's launches: one per placement), and FID of 4,096 real
+   images (one gather through the device cache) against 4,096 IWGAN
+   samples in 512-row chunks, pixel and encoder (phase 8's CNN), with the
+   train-vs-validate floor of each, every value finite and a set's FID
+   against itself below 1e-6 of its trace; (c) whether matplotlib imports
+   here, and if it does ``--loss``, ``hemx_torch.events`` and the
+   ``paper_visualize`` presets on phase 11's runs and the GUI's chart
+   route; the GUI's HTML routes over 127.0.0.1 always.
 
 Phase 2 also times the kernel, by CUDA events and by the device time
 torch.profiler records with the 50 MB L2 cache flushed before each
@@ -187,7 +203,7 @@ and 65x65x1, 12,675 and 4,225 bytes, not 16-byte aligned; of 66x66x3 and
 (128 of 256x256x3 and 256x256x1, one pix2pix bs64 call's two batches).
 
 The line before the last is a JSON list of the kernels with their launch
-counts summed over phases 4, 6, 8, 9, 11, 13, 15, 16 and 17 (each path's
+counts summed over phases 4, 6, 8, 9, 11, 13, 15, 16, 17 and 18 (each path's
 counts set to 0 just before it and read just after, phase 17's by each
 worker process and the torchrun run's summary line; by phase under
 ``launches_by_phase``), their phase-2 errors and times (the short gathers
@@ -201,6 +217,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -638,6 +655,7 @@ def synthetic_run(dev, *, count: int = 4096, eval_count: int = 1024,
         for split in splits.values():
             split.release_device_pipelines()
         return cli.run(argv, splits)
+    run.splits = splits
     return run
 
 
@@ -1841,20 +1859,16 @@ def _fresh_peak(torch, dev) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
 
 
-def _call_profile(torch, dev, res) -> dict:
-    """One more train call of a finished run under torch.profiler: its
-    device operations (kernels, copies, fills), their summed time, the
-    device's busy share of the traced call (union of their intervals over
-    the host-clock window) and that window."""
+def _traced(torch, dev, fn) -> dict:
+    """``fn()`` under torch.profiler: its device operations (kernels,
+    copies, fills), their summed time, the device's busy share of the
+    traced window (union of their intervals over the host-clock window)
+    and that window."""
     from torch.autograd import DeviceType
-    from hemx_torch.models.plugin import get_model
-    from hemx_torch.train.loop import _continuous_stream
-    model = get_model(res["args"].model)(res["args"], dev)
-    stream = _continuous_stream(res["pipeline"])
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.train(res["train_state"], stream)
+        fn()
         torch.cuda.synchronize(dev)
         window_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -1867,6 +1881,16 @@ def _call_profile(torch, dev, res) -> dict:
     return {"launches": len(spans),
             "kernel_ms": sum(b - a for a, b in spans) / 1e3,
             "traced_ms": window_us / 1e3, "busy": busy / window_us}
+
+
+def _call_profile(torch, dev, res) -> dict:
+    """One more train call of a finished run, traced (:func:`_traced`)."""
+    from hemx_torch.models.plugin import get_model
+    from hemx_torch.train.loop import _continuous_stream
+    model = get_model(res["args"].model)(res["args"], dev)
+    stream = _continuous_stream(res["pipeline"])
+    return _traced(torch, dev,
+                   lambda: model.train(res["train_state"], stream))
 
 
 def _zoo_line(label: str, card: str, res: dict, batch: int, launches: int,
@@ -2448,6 +2472,294 @@ def phase_data_parallel(torch, dev, card: str, workdir: str, bf16_median: float,
     return launches
 
 
+def _tool_run(dev, d: str, model: str) -> None:
+    """A tiny run on the card for phase 18 (a): 32 px, batch 8, latent 16,
+    ``--precision highest``, sgd, 2 calls."""
+    from hemx_torch import cli
+    cli.run(["--model", model, "--dataset", "synthetic", "--synthetic_u8",
+             "--synthetic_count", "64", "--synthetic_eval_count", "16",
+             "--synthetic_shape", "32", "32", "3", "--batch_size", "8",
+             "--latent_size", "16", "--precision", "highest", "--optimizer",
+             "sgd", "--lr", "1e-3", "--epochs", "1", "--epoch_size", "2",
+             "--examples", "8", "--seed", "0", "--device", str(dev), "--dir",
+             d])
+
+
+def phase_tools_card_vs_cpu(torch, dev, workdir: str) -> None:
+    """Phase 18 (a): the post-training tools' device work, card against
+    CPU, on a tiny cnn run and a tiny gan run trained on the card (f32,
+    TF32 off): every 4-D capture of the visualized net at rtol 2e-3 / atol
+    2e-5 (phase 3's f32 gates); the bestfit ascent from the same start
+    images, its first step at rtol 1e-4 / atol 1e-5 and its 20-step images,
+    min/max normalized, within 2/255 (the ascent feeds each step's rounding
+    into the next; on first-layer filters the port's and hemx's stay within
+    2/255, ``tests/test_torch_visualize.py``); the CNN's encoder and the
+    pixel features at 2e-3 / 2e-5, and the train-vs-validate FID from each
+    side's features at rtol 1e-3."""
+    import numpy as np
+    from hemx_torch import visualize as V
+    from hemx_torch.data.pipeline import place_batch
+    from hemx_torch.metrics import fid as F
+    for name, layer in (("cnn", "encoder/c1"), ("gan", "c1")):
+        d = os.path.join(workdir, name)
+        _tool_run(dev, d, name)
+        runs = {side: V.load_run(d, side) for side in (str(dev), "cpu")}
+        caps = {}
+        for side, r in runs.items():
+            r.ts.nets.eval()
+            caps[side] = {k: v.float().cpu().numpy()
+                          for k, v in V.capture_layers(r).items()}
+        check(sorted(caps[str(dev)]) == sorted(caps["cpu"]) != [],
+              f"{name}: captures {sorted(caps[str(dev)])} vs "
+              f"{sorted(caps['cpu'])}")
+        worst = 0.0
+        for k, want in caps["cpu"].items():
+            _close(caps[str(dev)][k], want, 2e-3, 2e-5, f"{name} capture {k}")
+            worst = max(worst, float(np.max(np.abs(caps[str(dev)][k] - want))))
+        c, h, w = runs["cpu"].model.input_shape(runs["cpu"].batch)
+        g = torch.Generator()
+        g.manual_seed(3)
+        starts = torch.rand((4, c, h, w), generator=g) * 0.2 + 0.4
+        imgs = {}
+        for steps in (1, 20):
+            for side, r in runs.items():
+                imgs[side] = [x.float().cpu().numpy() for x in
+                              V.bestfit_images(r, layer, 4, starts,
+                                               steps=steps)]
+            for i, (a, b) in enumerate(zip(imgs[str(dev)], imgs["cpu"])):
+                if steps == 1:
+                    _close(a, b, 1e-4, 1e-5, f"{name} bestfit step 1 [{i}]")
+                    continue
+                norm = lambda x: (x - x.min()) / max(x.max() - x.min(), 1e-12)  # noqa: E731
+                diff = float(np.max(np.abs(norm(a) - norm(b))))
+                check(diff <= 2 / 255, f"{name} bestfit {layer} [{i}]: "
+                                       f"normalized images {diff:.4g} apart")
+        line = (f"card vs cpu, {name} tools (32 px, batch 8, highest): "
+                f"{len(caps['cpu'])} captures, max |cuda-cpu| {worst:.3g}; "
+                f"bestfit {layer} x4, 20 steps, within 2/255")
+        if name == "cnn":
+            feats = {}
+            for side, r in runs.items():
+                rows = {sp: place_batch(next(r.splits[sp].iter_epoch(
+                    r.splits[sp].count, shuffle=False)), r.splits[sp],
+                    r.device, r.model.batch_keys)["image"]
+                    for sp in ("train", "validate")}
+                enc = F.encoder_features(r.model, r.ts)
+                feats[side] = {(kind, sp): fn(x) for sp, x in rows.items()
+                               for kind, fn in (("encoder", enc),
+                                                ("pixel", F.pixel_features))}
+            fids = {}
+            for key, want in feats["cpu"].items():
+                _close(feats[str(dev)][key], want, 2e-3, 2e-5,
+                       f"cnn {key} features")
+            for kind in ("encoder", "pixel"):
+                fids[kind] = {side: F.fid_from_features(
+                    f[(kind, "train")], f[(kind, "validate")])
+                    for side, f in feats.items()}
+                _close(fids[kind][str(dev)], fids[kind]["cpu"], 1e-3, 0.0,
+                       f"cnn {kind} FID train vs validate")
+            line += "; train-vs-validate FID cuda / cpu: " + ", ".join(
+                f"{k} {v[str(dev)]:.6g} / {v['cpu']:.6g}"
+                for k, v in fids.items())
+        print(line, flush=True)
+
+
+def _png_ok(path: str) -> tuple:
+    from hemx_torch.data.imageio import decode_image
+    with open(path, "rb") as f:
+        img = decode_image(f.read(), 0)
+    check(img.size > 0, f"{path} decodes to nothing")
+    return img.shape
+
+
+def phase_tools(torch, dev, card: str, workdir: str, iwgan_dir: str,
+                cnn_dir: str, splits: dict, thesis_dir: str) -> dict:
+    """Phase 18 (b) and (c): the post-training tools at full width on phase
+    6's bf16 IWGAN run and phase 8's bf16 cnn run (both on ``splits``,
+    phases 4-8's synthetic set), then the host-only tools on phase 11's
+    runs. Returns {path: input-kernel launches}."""
+    import threading
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    import numpy as np
+    from hemx_torch import events, paper_visualize, visualize as V
+    from hemx_torch import visualize_gui as gui
+    from hemx_torch.data.pipeline import DeviceDataPipeline
+    from hemx_torch.metrics import fid as F
+    from hemx_torch.ops import input_kernels as K
+    launches = {}
+    # one placement of the run's first global batch per tool that feeds a
+    # net images: the GAN's timelapse, activations and bestfit; the CNN's
+    # samples (reconstructions) besides
+    for name, d, want in (("iwgan", iwgan_dir, 3), ("cnn", cnn_dir, 4)):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = V.run(["--dir", d, "--sample", "--timelapse", "--activations",
+                     "--weights", "--bestfit", "--device", str(dev)])
+        wall = time.perf_counter() - t0
+        n = K.LAUNCHES["gather_u8_normalize"]
+        check(n == want, f"visualize {name}: input kernel launched {n}, "
+                         f"expected {want}")
+        launches[f"visualize_{name}"] = n
+        files = sorted(os.listdir(out["out_dir"]))
+        shapes = {f: _png_ok(os.path.join(out["out_dir"], f)) for f in files}
+        check(any(f.startswith("bestfit-") for f in files)
+              and "samples.png" in files and any(
+                  f.startswith("timelapse-") for f in files),
+              f"visualize {name}: files {files}")
+        print(f"visualize {name} (full width, bf16) on {card}: {wall:.2f} s "
+              f"with the run's loading; per tool " + ", ".join(
+                  f"{k} {v:.2f} s" for k, v in out["seconds"].items())
+              + f"; {len(files)} PNGs, each decodes: "
+              + ", ".join(f"{f} {shapes[f][0]}x{shapes[f][1]}"
+                          for f in files), flush=True)
+
+    # FID: 4,096 real images (the train split through the device cache, one
+    # gather) against 4,096 IWGAN samples, pixel and encoder features
+    K.reset_launches()
+    t0 = time.perf_counter()
+    real = [b["image"] for b in DeviceDataPipeline(
+        splits["train"], 512, device=dev, keys=("image",), shuffle=False,
+        group=8).epoch(0)]
+    val = [b["image"] for b in DeviceDataPipeline(
+        splits["validate"], 512, device=dev, keys=("image",), shuffle=False,
+        group=2).epoch(0)]
+    n = K.LAUNCHES["gather_u8_normalize"]
+    check(n == 2 and len(real) == 8 and len(val) == 2,
+          f"FID: {n} input launches for {len(real)} + {len(val)} batches, "
+          f"expected 2 for 8 + 2")
+    launches["fid_real"] = n
+    gan = V.load_run(iwgan_dir, dev)
+    enc = V.load_run(cnn_dir, dev)
+    gan.ts.nets.eval()
+    enc.ts.nets.eval()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    fake = [gan.model.sample(gan.ts, 512, z=torch.randn(
+        (512, gan.args.latent_size), generator=gen, device=dev)).float()
+        for _ in range(8)]
+    encoder = F.encoder_features(enc.model, enc.ts)
+    feats = {}
+    for label, chunks in (("real", real), ("fake", fake), ("validate", val)):
+        feats[("pixel", label)] = np.concatenate(
+            [F.pixel_features(x) for x in chunks])
+        feats[("encoder", label)] = np.concatenate([encoder(x) for x in chunks])
+    torch.cuda.synchronize(dev)
+    t_feat = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out = {}
+    for kind in ("pixel", "encoder"):
+        out[kind] = F.fid_from_features(feats[(kind, "real")],
+                                        feats[(kind, "fake")])
+        out[f"{kind}_floor"] = F.fid_from_features(feats[(kind, "real")],
+                                                   feats[(kind, "validate")])
+        mu, sigma = F.gaussian_stats(feats[(kind, "real")])
+        self_fid = F.frechet_distance(mu, sigma, mu, sigma)
+        check(abs(self_fid) < 1e-6 * np.trace(sigma),
+              f"{kind} FID of a set against itself {self_fid:.3g}, trace "
+              f"{np.trace(sigma):.3g}")
+        out[f"{kind}_self"] = self_fid
+    t_dist = time.perf_counter() - t1
+    check(all(math.isfinite(v) for v in out.values()),
+          f"non-finite FID {out}")
+    trace = _traced(torch, dev, lambda: V.bestfit_images(gan, "c1", 16))
+    print(f"IWGAN bestfit c1 (16 filters x 20 steps, bf16) traced on {card}: "
+          f"{trace['traced_ms']:.1f} ms, {trace['launches']} device "
+          f"operations, {trace['kernel_ms']:.1f} ms of them, busy "
+          f"{100 * trace['busy']:.1f} %", flush=True)
+    check(all(np.all(np.isfinite(f)) for f in feats.values()),
+          "non-finite features")
+    print(f"FID on {card}: 4,096 real (train) vs 4,096 IWGAN bf16 samples "
+          f"(512-row chunks): pixel {out['pixel']:.6g} (train vs 1,024 "
+          f"validate floor {out['pixel_floor']:.6g}), encoder (phase 8's "
+          f"CNN, {feats[('encoder', 'real')].shape[1]}-d latent) "
+          f"{out['encoder']:.6g} (floor {out['encoder_floor']:.6g}); self "
+          f"FID pixel {out['pixel_self']:.3g}, encoder "
+          f"{out['encoder_self']:.3g}; gather + sampling + features "
+          f"{t_feat:.2f} s (two run loadings among them), statistics and "
+          f"distances {t_dist:.2f} s",
+          flush=True)
+
+    # (c) host-only tools: matplotlib only draws here
+    try:
+        import matplotlib
+        mpl = matplotlib.__version__
+    except ImportError:
+        mpl = None
+    print(f"matplotlib on this host: {mpl or 'not installed'}", flush=True)
+    charts = os.path.join(workdir, "charts")
+    os.makedirs(charts)
+    runs = {"cgan/mean_adjusted": "cgan", "standalone/mean_provided":
+            "standalone", "sampler/baseline_e4-512": "sampler_e4_512"}
+    root = os.path.join(workdir, "thesis_root")
+    for dst, src in runs.items():
+        os.makedirs(os.path.dirname(os.path.join(root, dst)), exist_ok=True)
+        os.symlink(os.path.join(thesis_dir, src), os.path.join(root, dst))
+    if mpl:
+        t0 = time.perf_counter()
+        V.run(["--dir", iwgan_dir, "--loss", "--device", str(dev)])
+        check(os.path.getsize(os.path.join(iwgan_dir, "visualize",
+                                           "loss.pdf")) > 0, "no loss.pdf")
+        check(events.main([os.path.join(thesis_dir, "cgan"),
+                           os.path.join(thesis_dir, "standalone"), "--out",
+                           os.path.join(charts, "losses.pdf")]) == 0,
+              "events.main failed")
+        series = {}
+        for e in ("1", "1b", "2"):
+            fn = {"1": paper_visualize.render_experiment1,
+                  "1b": paper_visualize.render_experiment1b,
+                  "2": paper_visualize.render_experiment2}[e]
+            series[e] = fn(root, os.path.join(charts, f"experiment{e}.pdf"))
+        check(all(v > 0 for v in series.values()),
+              f"paper_visualize series {series}")
+        print(f"host tools: visualize --loss, events.main, paper_visualize "
+              f"1 / 1b / 2 ({series['1']} / {series['1b']} / {series['2']} "
+              f"series) in {time.perf_counter() - t0:.2f} s", flush=True)
+    httpd, n_runs = gui.make_server(thesis_dir, 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(base + path, timeout=60) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+    try:
+        runs_found = gui.discover_runs(thesis_dir)
+        i = runs_found.index(os.path.join(thesis_dir, "cgan"))
+        code, page = get("/")
+        check(code == 200 and b"/run/0" in page, f"GUI /: {code}")
+        code, page = get(f"/run/{i}")
+        check(code == 200 and b"losses/d_loss" in page, f"GUI /run/{i}: {code}")
+        images = [t for t in gui.get_tag_index(os.path.join(
+            runs_found[i], "train"))["images"]]
+        check(images != [], "phase 11's cgan run has no image summaries")
+        tag = urllib.parse.quote(images[0], safe="")
+        code, page = get(f"/images?run={i}&phase=train&tag={tag}")
+        check(code == 200 and b"/image.png?" in page, f"GUI /images: {code}")
+        step = re.search(rb"step=(\d+)", page).group(1).decode()
+        code, png = get(f"/image.png?run={i}&phase=train&tag={tag}&step={step}")
+        check(code == 200 and png[:8] == b"\x89PNG\r\n\x1a\n",
+              f"GUI /image.png: {code}")
+        for bad in ("/run/-1", f"/run/{n_runs}", "/chart?run=-1&phase=train"
+                    "&tag=x"):
+            check(get(bad)[0] == 404, f"GUI {bad} is not a 404")
+        if mpl:
+            code, png = get(f"/chart?run={i}&phase=train&tag=losses%2Fd_loss")
+            check(code == 200 and png[:8] == b"\x89PNG\r\n\x1a\n",
+                  f"GUI /chart: {code}")
+        print(f"GUI on 127.0.0.1: {n_runs} runs of phase 11; /, /run/{i}, "
+              f"/images, /image.png, 404s"
+              + (", /chart" if mpl else "") + " as expected", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2520,6 +2832,13 @@ def main() -> int:
         stage("phase 17: data parallel, two gloo ranks and torchrun")
         launches_dp = phase_data_parallel(
             torch, dev, card, os.path.join(workdir, "dp"), bf16_median)
+        stage("phase 18: the post-training tools")
+        tools = os.path.join(workdir, "tools")
+        phase_tools_card_vs_cpu(torch, dev, tools)
+        launches_tools = phase_tools(
+            torch, dev, card, tools, os.path.join(workdir, "bf16"),
+            os.path.join(workdir, "zoo", "cnn"), run64.splits,
+            os.path.join(workdir, "thesis"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     by_phase = {"phase4_iwgan_f32": launches, "phase6_iwgan_bf16": launches_bf16,
@@ -2529,14 +2848,15 @@ def main() -> int:
                 **{f"phase13_{k}": v for k, v in launches_slice.items()},
                 **{f"phase15_{k}": v for k, v in launches_zoo_rest.items()},
                 **{f"phase16_{k}": v for k, v in launches_celeb_coco.items()},
-                **{f"phase17_{k}": v for k, v in launches_dp.items()}}
+                **{f"phase17_{k}": v for k, v in launches_dp.items()},
+                **{f"phase18_{k}": v for k, v in launches_tools.items()}}
     print(json.dumps({"kernels": [{
         "name": "gather_u8_normalize", "route": "triton",
         "source": "hemx_torch/ops/input_kernels.py",
         "replaces": "hemx/ops/pallas_kernels.py:75",
         "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
         **kern}]}), flush=True)
-    print(f"phase 17 took {time.perf_counter() - marks[-1]:.1f} s; the script "
+    print(f"phase 18 took {time.perf_counter() - marks[-1]:.1f} s; the script "
           f"{time.perf_counter() - marks[0]:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

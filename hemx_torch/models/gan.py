@@ -274,10 +274,16 @@ class GanModel(ModelPlugin):
                 "d_loss": self._d_loss(d_real, d_fake)}
 
     @torch.no_grad()
-    def sample(self, ts: common.TrainState, n: int) -> torch.Tensor:
-        """``n`` generated images in [0, 1] (in the compute dtype), NCHW."""
-        z = common.draw_noise(common.generator(ts, common.SAMPLE, self.device),
-                              n, self.args.latent_size)["z"]
+    def sample(self, ts: common.TrainState, n: int,
+               z: torch.Tensor | None = None) -> torch.Tensor:
+        """``n`` generated images in [0, 1] (in the compute dtype), NCHW;
+        ``z``: optional (n, latent) noise through the seam."""
+        if z is None:
+            z = common.draw_noise(
+                common.generator(ts, common.SAMPLE, self.device), n,
+                self.args.latent_size)["z"]
+        else:
+            z = z.to(self.device)
         g, _ = ts.nets["generator"](z)
         return (g + 1.0) / 2.0
 

@@ -137,17 +137,21 @@ class VaeModel(ModelPlugin):
 
     @torch.no_grad()
     def recon_and_samples(self, ts: common.TrainState, batch: dict,
-                          n: int) -> tuple:
+                          n: int, noise=None) -> tuple:
         """Reconstructions of ``batch`` (BN on the whole batch's statistics)
         and ``n`` decoded N(0, 1) samples, both in [0, 1] (in the compute
-        dtype), NCHW."""
+        dtype), NCHW. ``noise``: optional ``{"eps"}`` (B, latent) for the
+        reconstructions and ``{"z"}`` (n, latent) for the samples through
+        the seam; what it lacks is drawn."""
         x = batch["image"]
+        noise = noise or {}
         gen = common.generator(ts, common.SAMPLE, self.device)
         eps = common.draw_noise(gen, x.shape[0], self.args.latent_size,
                                 key="eps")["eps"]
-        recon = self._forward(ts.nets, x, eps)[0]
+        recon = self._forward(ts.nets, x, noise.get("eps", eps)
+                              .to(self.device))[0]
         z = common.draw_noise(gen, n, self.args.latent_size, key="eps")["eps"]
-        return recon, ts.nets["decoder"](z)[0]
+        return recon, ts.nets["decoder"](noise.get("z", z).to(self.device))[0]
 
     def write_summaries(self, writer, step: int, ts: common.TrainState,
                         batch: dict) -> None:

@@ -39,7 +39,7 @@ import torch
 from hemx_torch.cli import CliError
 from hemx_torch.data.plugin import get_dataset_tensors
 from hemx_torch.models.conditional import numpy_nhwc
-from hemx_torch.paper_metrics import check_device, restore_run
+from hemx_torch.runs import check_device, restore_run
 from hemx_torch.summaries.montage import to_uint8
 from hemx_torch.summaries.png import encode_png
 from hemx_torch.utils import terminal as term

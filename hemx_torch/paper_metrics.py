@@ -7,7 +7,9 @@
 Rebuilds the model from the run's ``options.json`` (one written by hemx or
 by the port), restores checkpoint ``--checkpoint`` (default 50, the
 reference's) or, when the run has none of that epoch, the latest, and
-averages the Eigen suite over each split's batches, in order, for:
+averages the Eigen suite over each split's batches, in order, at hemx's
+global batch (``batch_size * (n_devices or 1)`` from the run's options,
+:mod:`hemx_torch.runs`), for:
 
 * ``y_hat``: the model's prediction;
 * ``y_0``: zeros under ``--model_version baseline``, else the per-image
@@ -27,62 +29,24 @@ import argparse
 import json
 import os
 import sys
-import types
 
 import numpy as np
-import torch
 
-from hemx_torch import convert
 from hemx_torch.cli import CliError
-from hemx_torch.config import load_options
 from hemx_torch.data.pipeline import place_batch
-from hemx_torch.data.plugin import get_dataset_tensors
 from hemx_torch.metrics.eigen import EigenAccumulator, eigen_metrics
 from hemx_torch.models.conditional import numpy_nhwc
-from hemx_torch.models.plugin import get_model
-from hemx_torch.ops.layers import set_precision
+from hemx_torch.runs import check_device, global_batch, restore_run
 from hemx_torch.summaries.montage import to_uint8
 from hemx_torch.summaries.png import encode_png
-from hemx_torch.train.checkpoint import CheckpointManager
 from hemx_torch.utils import terminal as term
-
-
-def check_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise CliError(f"--device {name}: no CUDA device is available (use "
-                       f"--device cpu to run on the CPU)")
-    return device
-
-
-def restore_run(directory: str, device, epoch: int | None = None):
-    """(args, splits, model, train state, host batch, checkpoint path) of
-    the run in ``directory``: checkpoint ``epoch`` when the run has it,
-    else its latest."""
-    args = types.SimpleNamespace(**load_options(
-        os.path.join(directory, "options.json")))
-    args.dir = directory
-    set_precision(getattr(args, "precision", "default"))
-    splits = get_dataset_tensors(args)
-    cls = get_model(args.model)
-    if cls is None:
-        raise CliError(f"model '{args.model}' of {directory} is not in "
-                       f"hemx_torch", code=2)
-    model = cls(args, device)
-    host_batch = next(splits["train"].iter_epoch(args.batch_size,
-                                                 shuffle=False))
-    ts = model.init_state(model.input_shape(host_batch), args.seed)
-    mgr = CheckpointManager(directory)
-    path = dict(mgr.checkpoints()).get(epoch) or mgr.latest()
-    if path is None:
-        raise CliError(f"no checkpoint in {directory}")
-    convert.load_checkpoint(ts, mgr.restore(path))
-    return args, splits, model, ts, host_batch, path
 
 
 def evaluate_split(model, ts, split, args, device, mean_image=None,
                    max_batches: int | None = None) -> dict:
-    """{variant: {metric: mean over the split's batches}}."""
+    """{variant: {metric: mean over the split's batches}}, the split
+    batched at hemx's global batch (:func:`hemx_torch.runs.global_batch`),
+    the remainder dropped."""
     accs = {"y_hat": EigenAccumulator(), "y_0": EigenAccumulator()}
     if mean_image is not None:
         accs["y_mean"] = EigenAccumulator()
@@ -90,7 +54,8 @@ def evaluate_split(model, ts, split, args, device, mean_image=None,
               else (0.0, 1.0))
     version = getattr(args, "model_version", None)
     n = 0
-    for batch in split.iter_epoch(args.batch_size, shuffle=False):
+    for batch in split.iter_epoch(global_batch(args, device),
+                                   shuffle=False):
         g, prep = model.predict(ts, place_batch(batch, split, device,
                                                 model.batch_keys))
         y = (numpy_nhwc(prep["y"]) - lo) / (hi - lo)

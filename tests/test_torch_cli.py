@@ -69,12 +69,16 @@ def test_port_does_not_load_jax():
             "import hemx_torch.paper_fullimage\n"
             "import hemx_torch.models.pix2pix, hemx_torch.models.artist\n"
             "import hemx_torch.models.info_gan, hemx_torch.models.fake\n"
+            "import hemx_torch.runs, hemx_torch.visualize, hemx_torch.events\n"
+            "import hemx_torch.paper_visualize, hemx_torch.visualize_gui\n"
+            "import hemx_torch.metrics.fid, hemx_torch.utils.misc\n"
             "from hemx_torch.data.plugin import available_datasets\n"
             "assert len(available_datasets()) == 7  # imports every plugin\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'hemx',\n"
             "        'PIL', 'matplotlib', 'paper_train', 'experimental',\n"
-            "        'paper_metrics', 'paper_fullimage')]\n"
+            "        'paper_metrics', 'paper_fullimage', 'visualize', 'events',\n"
+            "        'paper_visualize', 'visualize_gui')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     r = _run(["-c", code])
@@ -83,14 +87,20 @@ def test_port_does_not_load_jax():
 
 def test_sources_import_no_jax_or_hemx():
     """No source of the port, nor chip_smoke.py, imports JAX, flax, optax,
-    msgpack, matplotlib, hemx or the root paper_train.py, experimental.py,
-    paper_metrics.py and paper_fullimage.py."""
+    msgpack, hemx or the root paper_train.py, experimental.py,
+    paper_metrics.py, paper_fullimage.py, visualize.py, events.py,
+    paper_visualize.py and visualize_gui.py; matplotlib only inside the
+    functions that draw (never at a module's top level)."""
     pat = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack|matplotlib|hemx"
-        r"|paper_train|experimental|paper_metrics|paper_fullimage)\b", re.M)
-    for path in (REPO / "hemx_torch").rglob("*.py"):
-        assert not pat.search(path.read_text()), path
-    assert not pat.search((REPO / "chip_smoke.py").read_text())
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack|hemx"
+        r"|paper_train|experimental|paper_metrics|paper_fullimage|visualize"
+        r"|events|paper_visualize|visualize_gui)\b", re.M)
+    top_level_mpl = re.compile(r"^(import|from)\s+matplotlib\b", re.M)
+    for path in list((REPO / "hemx_torch").rglob("*.py")) + [
+            REPO / "chip_smoke.py"]:
+        text = path.read_text()
+        assert not pat.search(text), path
+        assert not top_level_mpl.search(text), path
 
 
 def test_cli_trains_on_cpu(tmp_path):

@@ -127,6 +127,11 @@ def test_streaming_pipeline_matches_cache_on_cuda(cuda_device, group):
     args = SimpleNamespace(synthetic_count=80, synthetic_shape=[64, 64, 3],
                            synthetic_eval_count=0, synthetic_u8=True, seed=0)
     split = SyntheticDataset.get_datasets(args)["train"]
+    # the set's uint8 image and depth go through the kernel (one launch
+    # each per group); its float keys are copied as they are
+    keys = split.device_transform.keys
+    row_bytes = sum(v[0].nbytes for v in
+                    next(split.iter_epoch(1, shuffle=False)).values())
     cached = DeviceDataPipeline(split, 8, device=cuda_device, seed=3,
                                 group=group)
     stream = Pipeline(split, 8, device=cuda_device, seed=3, group=group)
@@ -137,10 +142,13 @@ def test_streaming_pipeline_matches_cache_on_cuda(cuda_device, group):
         before = K.LAUNCHES["gather_u8_normalize"]
         torch.cuda._sleep(2_000_000_000)  # cycles: the copies wait behind it
         got = list(stream.epoch(e))
-        assert K.LAUNCHES["gather_u8_normalize"] - before == -(-10 // group)
+        assert (K.LAUNCHES["gather_u8_normalize"] - before
+                == len(keys) * -(-10 // group))
         assert len(got) == len(want) == 10
         for g, w in zip(got, want):
-            assert g["image"].device == w["image"].device
-            assert torch.equal(g["image"], w["image"])
+            assert g.keys() == w.keys()
+            for k in g:
+                assert g[k].device == w[k].device
+                assert torch.equal(g[k], w[k]), k
     stream.drain()
-    assert stream.h2d_bytes == 4 * 80 * 64 * 64 * 3 and stream.h2d_s > 0
+    assert stream.h2d_bytes == 4 * 80 * row_bytes and stream.h2d_s > 0
