@@ -192,6 +192,26 @@ prints its last line):
    here, and if it does ``--loss``, ``hemx_torch.events`` and the
    ``paper_visualize`` presets on phase 11's runs and the GUI's chart
    route; the GUI's HTML routes over 127.0.0.1 always.
+19. hemx's ``model`` and ``spatial`` mesh axes: (a) ``python -m
+   hemx_torch.cli --model_parallel 2`` and ``--spatial_parallel 2`` exit 1
+   with hemx's "does not divide 1 device(s)" on a one-GPU host; (b) iwgan
+   (``n_disc_train 2``) and cnn at phase 3's size on four gloo ranks of
+   the card, as data 2 x model 2 and data 2 x spatial 2 (batch 4 per data
+   shard), against one process at batch 8, with phase 17 (a)'s
+   tolerances and cuDNN's deterministic algorithms, and each rank's input
+   launches; (c) hemx's ``examples/multichip_scaling.config`` (IWGAN,
+   latent 200, 64x64x3, batch 128 per data shard, Adam(1e-4, 0.5, 0.9),
+   5+1) on two gloo ranks of the card, once under ``--spatial_parallel 2``
+   and once under ``--model_parallel 2``, ``synthetic_count`` cut to
+   1,024, 2 calls and a checkpoint: finite losses, the checkpoint's tree
+   and shapes a one-process run's and resumed by one process, launches
+   equal to their formula, per call time, axis collectives and bytes,
+   each rank's peak device memory and parameter-and-moment bytes against
+   the one-process run's (under ``model`` at most 0.6 of it); (d), in
+   phase 2: the input kernel's height band (512 rows of 64x64x3 and 128
+   of 256x256x3, each in two bands) bit-equal to its plain version and to
+   the whole gather's rows, device time with the L2 cache flushed,
+   against its bytes bound.
 
 Phase 2 also times the kernel, by CUDA events and by the device time
 torch.profiler records with the 50 MB L2 cache flushed before each
@@ -203,11 +223,12 @@ and 65x65x1, 12,675 and 4,225 bytes, not 16-byte aligned; of 66x66x3 and
 (128 of 256x256x3 and 256x256x1, one pix2pix bs64 call's two batches).
 
 The line before the last is a JSON list of the kernels with their launch
-counts summed over phases 4, 6, 8, 9, 11, 13, 15, 16, 17 and 18 (each path's
+counts summed over phases 4, 6, 8, 9, 11, 13, 15-19 (each path's
 counts set to 0 just before it and read just after, phase 17's by each
 worker process and the torchrun run's summary line; by phase under
 ``launches_by_phase``), their phase-2 errors and times (the short gathers
-under ``cold_rows``), and their bound; the last line is ``{"ok": true,
+under ``cold_rows``, the band rows of phase 19 (d), run in phase 2, under
+``band_rows``), and their bound; the last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -435,7 +456,8 @@ def phase_kernel(torch, dev) -> dict:
           f"call computes gather + convert + scale", flush=True)
     return {"max_abs_err": max_err, "ms": ms["kernel"],
             "plain_ms": ms["plain"], "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None, "cold_rows": cold}
+            "bound_by": "bytes", "library_ms": None, "cold_rows": cold,
+            "band_rows": phase_band_kernel(torch, dev)}
 
 
 def _close(a, b, rtol, atol, what):
@@ -2327,20 +2349,50 @@ DP_SMALL = [
 ]
 
 
+def _compare_runs(label: str, got_dir: str, want_dir: str, tol: dict,
+                  loss_rtol) -> float:
+    """Check the last checkpoint of the run in ``got_dir`` (params, BN
+    stats, optimizer state) against ``want_dir``'s at ``tol``, and its
+    train and validate losses at ``loss_rtol(phase, tag)`` (+ 1e-5);
+    returns the largest |diff| of the state."""
+    import numpy as np
+    from hemx_torch.convert import flatten_tree
+    from hemx_torch.summaries.reader import get_all_events
+    from hemx_torch.train.checkpoint import CheckpointManager
+    worst = 0.0
+    got, want = (flatten_tree(CheckpointManager(d).restore()["train_state"])
+                 for d in (got_dir, want_dir))
+    check(sorted(got) == sorted(want), f"{label}: checkpoint trees differ")
+    for k in want:
+        if k[0] in ("params", "mstate", "opt"):
+            a_, b_ = np.asarray(got[k]), np.asarray(want[k])
+            check(np.allclose(a_, b_, **tol),
+                  f"{label} {'/'.join(k)}: differs from one process by "
+                  f"{np.abs(a_ - b_).max()}")
+            if a_.size:
+                worst = max(worst, float(np.abs(a_ - b_).max()))
+    for phase in ("train", "validate"):
+        ev = [{(t, s): v for t, rows in get_all_events(os.path.join(
+            d, phase)).items() if t.startswith("losses/") for _, s, v in rows}
+              for d in (got_dir, want_dir)]
+        check(ev[0].keys() == ev[1].keys() and ev[1],
+              f"{label} {phase}: losses {sorted(ev[0])} vs {sorted(ev[1])}")
+        for k, v in ev[1].items():
+            check(abs(ev[0][k] - v) <= loss_rtol(phase, k[0]) * abs(v) + 1e-5,
+                  f"{label} {phase} {k}: {ev[0][k]}, one process {v}")
+    return worst
+
+
 def phase_data_parallel(torch, dev, card: str, workdir: str, bf16_median: float,
                         *, count: int = 3072, eval_count: int = 512,
                         batch: int = 512, calls: int = 6) -> dict:
     """(a) two gloo ranks on ``dev`` against one process at the global
     batch, through the library's worker function; (b) the full-width bf16
     IWGAN through ``torchrun`` (NCCL, world size 1). Returns launches."""
-    import numpy as np
     from hemx_torch import cli, paper_train
     from hemx_torch.config import parse_args
-    from hemx_torch.convert import flatten_tree
     from hemx_torch.ops import input_kernels as K
     from hemx_torch.parallel import mesh
-    from hemx_torch.summaries.reader import get_all_events
-    from hemx_torch.train.checkpoint import CheckpointManager
 
     try:
         cli.workers(parse_args(["--dataset", "synthetic", "--n_devices", "2",
@@ -2394,34 +2446,12 @@ def phase_data_parallel(torch, dev, card: str, workdir: str, bf16_median: float,
               f"{single}")
         tol = (dict(rtol=2e-2, atol=1e-2) if name == "vae"
                else dict(rtol=2e-3, atol=2e-5))
-        worst = 0.0
-        trees = []
-        for side in ("two", "one"):
-            m = CheckpointManager(os.path.join(workdir, name, side))
-            trees.append(flatten_tree(m.restore()["train_state"]))
-        for k in trees[1]:
-            if k[0] in ("params", "mstate", "opt"):
-                a_, b_ = np.asarray(trees[0][k]), np.asarray(trees[1][k])
-                check(np.allclose(a_, b_, **tol),
-                      f"{name} {'/'.join(k)}: two ranks differ from one "
-                      f"process by {np.abs(a_ - b_).max()}")
-                if a_.size:
-                    worst = max(worst, float(np.abs(a_ - b_).max()))
-        for phase in ("train", "validate"):
-            ev = [{(t, s): v for t, rows in get_all_events(os.path.join(
-                workdir, name, side, phase)).items()
-                   if t.startswith("losses/") for _, s, v in rows}
-                  for side in ("two", "one")]
-            check(ev[0].keys() == ev[1].keys() and ev[1],
-                  f"{name} {phase}: losses {sorted(ev[0])} vs "
-                  f"{sorted(ev[1])}")
-            for k, v in ev[1].items():
-                rt = 2e-2 if name == "vae" and (
-                    phase == "validate" or "grad_norm" in k[0]) else (
-                    1e-3 if "grad_norm" in k[0] else 5e-4)
-                check(abs(ev[0][k] - v) <= rt * abs(v) + 1e-5,
-                      f"{name} {phase} {k}: two ranks {ev[0][k]}, one "
-                      f"process {v}")
+        worst = _compare_runs(
+            f"{name} two ranks", os.path.join(workdir, name, "two"),
+            os.path.join(workdir, name, "one"), tol,
+            lambda phase, tag, name=name: 2e-2 if name == "vae" and (
+                phase == "validate" or "grad_norm" in tag) else (
+                1e-3 if "grad_norm" in tag else 5e-4))
         print(f"{name}: 2 gloo ranks on {card} (batch 4 each) vs one "
               f"process (batch 8): one call, max |diff| of params, BN "
               f"stats and optimizer state {worst:.3g} (allowed rtol "
@@ -2469,6 +2499,341 @@ def phase_data_parallel(torch, dev, card: str, workdir: str, bf16_median: float,
           f"{launches['torchrun_nccl_world1_iwgan_bf16']} input-kernel "
           f"launches (expected {want}); the command took {wall:.1f} s",
           flush=True)
+    return launches
+
+def _state_bytes(ts) -> int:
+    """Bytes of a train state's parameters and optimizer moments (a rank's
+    slices under ``--model_parallel``)."""
+    from hemx_torch.train.optimizers import Moments, Optimizer
+
+    def walk(state) -> int:
+        if isinstance(state, Moments):
+            return sum(t.numel() * t.element_size() for t in state.values())
+        if isinstance(state, dict):
+            return sum(walk(v) for v in state.values())
+        return 0
+    opts = [ts.opt] if isinstance(ts.opt, Optimizer) else list(ts.opt.values())
+    return (sum(p.numel() * p.element_size() for p in ts.nets.parameters())
+            + sum(walk(o.state) for o in opts))
+
+
+def _axis_runs(runs, out_dir: str) -> None:
+    """Each argv of ``runs`` through ``cli.run`` in this rank of a process
+    group; per run, its input-kernel launches, peak device memory, state
+    bytes and summary line go to ``out_dir/axis-<rank>.json``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from hemx_torch import cli
+    from hemx_torch.ops import input_kernels as K
+    torch.backends.cudnn.deterministic = True  # see DP_SMALL
+    out = []
+    for argv in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        res = cli.run(argv)
+        out.append({"launches": K.LAUNCHES["gather_u8_normalize"],
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "state_bytes": _state_bytes(res["train_state"]),
+                    "summary": res["summary"]})
+        del res
+    with open(os.path.join(out_dir, f"axis-{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+# phase 19 (b): one call of each on four gloo ranks of cuda:0, as hemx's
+# (data=2, model=2) and (data=2, spatial=2) grids (batch 4 per data shard),
+# and in one process at the global batch 8, with phase 17 (a)'s flags and
+# tolerances
+AXES_SMALL = [
+    ("iwgan", ["--model", "iwgan", "--latent_size", "16", "--n_disc_train",
+               "2", "--optimizer", "momentum", "--lr", "1e-3", "--momentum",
+               "0.5"]),
+    ("cnn", ["--model", "cnn", "--latent_size", "16", "--optimizer",
+             "momentum", "--lr", "1e-3", "--momentum", "0.5"]),
+]
+AXES = ("model", "spatial")
+
+
+def phase_axes_refused(torch, workdir: str) -> None:
+    """(a) On a one-GPU host, ``--model_parallel 2`` and
+    ``--spatial_parallel 2`` exit 1 with hemx's "does not divide 1
+    device(s)"."""
+    import contextlib
+    import io
+
+    from hemx_torch import cli
+    n = torch.cuda.device_count()
+    for axis in AXES:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            code = cli.main(["--dataset", "synthetic", f"--{axis}_parallel",
+                             "2", "--dir", os.path.join(workdir, "refused")])
+        if n % 2 == 0:
+            print(f"--{axis}_parallel 2 on {n} GPUs: not refused (exit "
+                  f"{code})", flush=True)
+            continue
+        want = f"ERROR: --{axis}_parallel 2 does not divide {n} device(s)"
+        check(code == 1 and err.getvalue().strip() == want,
+              f"--{axis}_parallel 2: exit {code}, {err.getvalue()!r}")
+        print(f"python -m hemx_torch.cli --{axis}_parallel 2: exit 1, "
+              f"{want[7:]!r}, hemx's words", flush=True)
+
+
+def phase_axes_small(torch, dev, card: str, workdir: str) -> dict:
+    """(b) iwgan and cnn at phase 3's size on four gloo ranks of ``dev``
+    under each axis against one process on ``dev`` at the global batch.
+    Returns launches."""
+    from hemx_torch import cli
+    from hemx_torch.ops import input_kernels as K
+    from hemx_torch.parallel import mesh
+
+    def argv(flags, b, d, extra):
+        return (["--dataset", "synthetic", "--synthetic_u8",
+                 "--synthetic_count", "32", "--synthetic_eval_count", "16",
+                 "--synthetic_shape", "32", "32", "3", "--epochs", "1",
+                 "--epoch_size", "1", "--precision", "highest", "--device",
+                 str(dev), "--seed", "3", "--batch_size", str(b), "--dir",
+                 d] + flags + extra)
+
+    runs = [argv(flags, 4, os.path.join(workdir, name, axis),
+                 [f"--{axis}_parallel", "2"])
+            for name, flags in AXES_SMALL for axis in AXES]
+    t0 = time.perf_counter()
+    mesh.spawn(_axis_runs, 4, device=str(dev), backend="gloo",
+               args=(runs, workdir))
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(workdir, f"axis-{r}.json")))
+             for r in range(4)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # see DP_SMALL
+    launches = {}
+    for i, (name, flags) in enumerate(AXES_SMALL):
+        K.reset_launches()
+        cli.run(argv(flags, 8, os.path.join(workdir, name, "one"), []))
+        single = K.LAUNCHES["gather_u8_normalize"]
+        for j, axis in enumerate(AXES):
+            got = [ranks[r][2 * i + j] for r in range(4)]
+            counts = [g["launches"] for g in got]
+            for r, c in enumerate(counts):
+                launches[f"{name}_{axis}2_rank{r}"] = c
+            # every rank gathers its rows (its band under spatial); rank 0
+            # also places the summary batch
+            check(counts == [single] + [single - 1] * 3,
+                  f"{name} {axis}: launches {counts}, one process {single}")
+            s = got[0]["summary"]
+            check(s["processes"] == 4 and s["global_batch"] == 8
+                  and s["axis"]["kind"] == axis and s["axis"]["data"] == 2,
+                  f"{name} {axis}: summary {s}")
+            tol = dict(rtol=2e-3, atol=2e-5)
+            worst = _compare_runs(
+                f"{name} data 2 x {axis} 2",
+                os.path.join(workdir, name, axis),
+                os.path.join(workdir, name, "one"), tol,
+                lambda phase, tag: 1e-3 if "grad_norm" in tag else 5e-4)
+            print(f"{name}: 4 gloo ranks on {card} as data 2 x {axis} 2 "
+                  f"(batch 4 per data shard) vs one process (batch 8): one "
+                  f"call, max |diff| of params, BN stats and optimizer "
+                  f"state {worst:.3g} (allowed rtol {tol['rtol']} / atol "
+                  f"{tol['atol']}), losses within their tolerance; "
+                  f"launches {counts}, one process {single}; "
+                  f"{s['axis']['collectives_per_call']:.0f} axis "
+                  f"collectives, {s['axis']['bytes_per_call'] / 1e6:.2f} MB "
+                  f"per call", flush=True)
+    torch.backends.cudnn.deterministic = deterministic
+    print(f"phase 19 (b): the four ranks' four runs took {spawn_s:.1f} s "
+          f"(process start included)", flush=True)
+    return launches
+
+
+def phase_axes_full(torch, dev, card: str, workdir: str, *,
+                    count: int = 1024, eval_count: int = 128,
+                    batch: int = 128, image: int = 64, latent: int = 200,
+                    calls: int = 2) -> dict:
+    """(c) hemx's ``examples/multichip_scaling.config`` (the IWGAN at
+    latent 200, 64x64x3, batch 128 per data shard, Adam(1e-4, 0.5, 0.9),
+    5 critic steps) on two gloo ranks of ``dev``, once under
+    ``--spatial_parallel 2`` and once under ``--model_parallel 2``
+    (synthetic_count cut to ``count``, ``calls`` calls, a checkpoint),
+    against one process at the same global batch. Returns launches."""
+    import shutil as sh
+
+    import numpy as np
+    from hemx_torch import cli
+    from hemx_torch.config import parse_args
+    from hemx_torch.convert import flatten_tree
+    from hemx_torch.ops import input_kernels as K
+    from hemx_torch.parallel import mesh
+    from hemx_torch.train.checkpoint import CheckpointManager
+    config = os.path.join(os.getcwd(), "examples", "multichip_scaling.config")
+    want_args = parse_args(["@" + config, "--device", str(dev)])
+    check(want_args.model == "iwgan" and want_args.latent_size == 200
+          and want_args.batch_size == 128 and want_args.n_disc_train == 5
+          and want_args.optimizer == "adam" and want_args.spatial_parallel == 2,
+          f"{config}: {vars(want_args)}")
+
+    def argv(d, axis):
+        return (["@" + config, "--synthetic_u8", "--synthetic_count",
+                 str(count), "--synthetic_eval_count", str(eval_count),
+                 "--synthetic_shape", str(image), str(image), "3",
+                 "--batch_size", str(batch), "--latent_size", str(latent),
+                 "--epochs", "1", "--epoch_size", str(calls), "--device",
+                 str(dev), "--seed", "0", "--dir", d,
+                 "--spatial_parallel", "2" if axis == "spatial" else "1",
+                 "--model_parallel", "2" if axis == "model" else "1"])
+
+    runs = [argv(os.path.join(workdir, axis), axis) for axis in AXES]
+    t0 = time.perf_counter()
+    mesh.spawn(_axis_runs, 2, device=str(dev), backend="gloo",
+               args=(runs, workdir))
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(workdir, f"axis-{r}.json")))
+             for r in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    one = cli.run(argv(os.path.join(workdir, "one"), None))
+    one_launches = K.LAUNCHES["gather_u8_normalize"]
+    one_peak = torch.cuda.max_memory_allocated()
+    one_state = _state_bytes(one["train_state"])
+    one_s = one["summary"]
+    del one
+    want = run_launches(count, eval_count, batch, calls)
+    check(one_launches == want, f"one process: {one_launches} launches, "
+                                f"expected {want}")
+    one_tree = flatten_tree(CheckpointManager(os.path.join(
+        workdir, "one")).restore())
+    launches = {}
+    for j, axis in enumerate(AXES):
+        got = [ranks[r][j] for r in range(2)]
+        counts = [g["launches"] for g in got]
+        for r, c in enumerate(counts):
+            launches[f"multichip_{axis}2_rank{r}"] = c
+        check(counts == [want, want - 1],
+              f"{axis}: launches {counts}, expected [{want}, {want - 1}]")
+        s = got[0]["summary"]
+        check(s["step"] == calls and s["global_batch"] == batch
+              and s["axis"]["kind"] == axis and s["axis"]["size"] == 2,
+              f"{axis}: summary {s}")
+        d = os.path.join(workdir, axis)
+        tree = flatten_tree(CheckpointManager(d).restore())
+        check(sorted(tree) == sorted(one_tree) and all(
+            np.shape(tree[k]) == np.shape(one_tree[k]) for k in tree),
+            f"{axis}: the checkpoint's tree or shapes differ from one "
+            f"process's")
+        for k, v in tree.items():
+            if k[1:2] in (("params",), ("mstate",), ("opt",)):
+                check(np.isfinite(np.asarray(v)).all(),
+                      f"{axis}: {'/'.join(k)} not finite")
+        from hemx_torch.summaries.reader import get_all_events
+        losses = {t: [v for _, _, v in rows] for t, rows in get_all_events(
+            os.path.join(d, "train")).items() if t.startswith("losses/")}
+        check(losses and all(np.isfinite(v).all() for v in losses.values()),
+              f"{axis}: losses {losses}")
+        resumed = os.path.join(workdir, f"{axis}_resumed")
+        sh.copytree(d, resumed)
+        more = argv(resumed, None)
+        more[more.index("--epochs") + 1] = "+1"
+        more[more.index("--epoch_size") + 1] = "1"
+        res = cli.run(more)
+        check(res["resumed"] is not None and res["train_state"].step
+              == calls + 1, f"{axis}: one process did not resume the run")
+        del res
+        ax = s["axis"]
+        peaks = [g["peak"] for g in got]
+        states = [g["state_bytes"] for g in got]
+        print(f"multichip_scaling.config under --{axis}_parallel 2 (2 gloo "
+              f"ranks on {card}, batch {batch} per data shard, "
+              f"synthetic_count {count}, {calls} calls): first call "
+              f"{s['first_call_s']:.3f} s, median of the rest "
+              f"{s['median_call_s']:.3f} s (one process: "
+              f"{one_s['first_call_s']:.3f} / {one_s['median_call_s']:.3f} "
+              f"s); per call {ax['collectives_per_call']:.0f} axis "
+              f"collectives, {ax['bytes_per_call'] / 1e9:.3f} GB, and "
+              f"{s['grad_all_reduce']['collectives'] / calls:.1f} gradient "
+              f"all-reduces, {s['grad_all_reduce']['bytes'] / calls / 1e9:.3f}"
+              f" GB; per-rank peak device memory "
+              f"{[round(p / 2**30, 3) for p in peaks]} GiB (one process "
+              f"{one_peak / 2**30:.3f}); parameters and moments per rank "
+              f"{[round(b / 2**20, 1) for b in states]} MiB (one process "
+              f"{one_state / 2**20:.1f}, ratio "
+              f"{max(states) / one_state:.3f}); launches {counts} (expected "
+              f"{want}, {want - 1}); losses finite; checkpoint tree and "
+              f"shapes a one-process run's, resumed by one process",
+              flush=True)
+        if axis == "model":
+            check(max(states) < 0.6 * one_state,
+                  f"model: a rank holds {max(states)} of {one_state} bytes "
+                  f"of parameters and moments")
+    print(f"phase 19 (c): the two ranks' two runs took {spawn_s:.1f} s "
+          f"(process start included); gloo stages every collective on a "
+          f"CUDA tensor through the host, so these times measure that the "
+          f"axes are right, not what they would gain over NVLink",
+          flush=True)
+    return launches
+
+
+def phase_band_kernel(torch, dev) -> list:
+    """Phase 2's (and the axes' (d)) input kernel's height band against its
+    plain version, bit for bit: 512 rows of 64x64x3 and 128 rows of 256x256x3, each in its
+    two bands; device time with the L2 cache flushed before each launch,
+    beside the bytes bound."""
+    from hemx_torch.ops import input_kernels as K
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev).zero_
+    rows_out = []
+    for side, n_ds, rows in ((64, 4096, 512), (256, 1024, 128)):
+        ds = torch.randint(0, 256, (n_ds, side, side, 3), dtype=torch.uint8,
+                           device=dev, generator=g)
+        idx = torch.randperm(n_ds, device=dev, generator=g)[:rows]
+        whole = K.gather_u8_normalize_ref(ds, idx, -1.0, 1.0)
+        for h0, h1 in ((0, side // 2), (side // 2, side)):
+            a = K.gather_u8_normalize(ds, idx, -1.0, 1.0, rows=(h0, h1))
+            b = K.gather_u8_normalize_ref(ds, idx, -1.0, 1.0, rows=(h0, h1))
+            torch.cuda.synchronize()
+            check(a.shape == (rows, 3, h1 - h0, side) and a.is_contiguous(
+                memory_format=torch.channels_last),
+                f"band kernel output {tuple(a.shape)}")
+            check(torch.equal(a, b) and torch.equal(a, whole[:, :, h0:h1]),
+                  f"band ({h0}, {h1}) of {side}x{side}x3: kernel and plain "
+                  f"differ by {(a - b).abs().max().item()}")
+            ms = _device_ms(torch, lambda: K.gather_u8_normalize(
+                ds, idx, -1.0, 1.0, rows=(h0, h1)), flush=flush)
+            plain = _device_ms(torch, lambda: K.gather_u8_normalize_ref(
+                ds, idx, -1.0, 1.0, rows=(h0, h1)), flush=flush)
+            band = (h1 - h0) * side * 3
+            moved = rows * (band * 5 + idx.element_size())
+            bound = moved / HBM_BYTES_PER_S * 1e3
+            rows_out.append({"rows": f"{rows}x{side}x{side}x3",
+                             "band": [h0, h1], "band_bytes": band,
+                             "max_abs_err": 0.0, "device_ms": ms,
+                             "plain_device_ms": plain, "bound_ms": bound})
+            print(f"gather_u8_normalize band rows ({h0}, {h1}) of {rows}x"
+                  f"{side}x{side}x3 ({band} B of each row): bit-equal to "
+                  f"the plain version and to the whole gather's rows; "
+                  f"device time (torch.profiler, 20 calls, L2 flushed "
+                  f"before each) kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+                  f"bound {bound:.4f} ms ({moved / 1e6:.2f} MB at 3.35 "
+                  f"TB/s), kernel at {100 * bound / ms:.0f} % of it",
+                  flush=True)
+    return rows_out
+
+
+def phase_axes(torch, dev, card: str, workdir: str) -> dict:
+    """Phase 19: (a) the refusals on one card, (b) card runs of the two
+    axes at a small size against one process, (c) the multichip_scaling
+    config at full width under each axis ((d), the input kernel's band,
+    runs in phase 2). Returns launches."""
+    phase_axes_refused(torch, workdir)
+    launches = {f"small_{k}": v for k, v in phase_axes_small(
+        torch, dev, card, os.path.join(workdir, "small")).items()}
+    launches.update(phase_axes_full(torch, dev, card,
+                                    os.path.join(workdir, "full")))
     return launches
 
 
@@ -2839,6 +3204,9 @@ def main() -> int:
             torch, dev, card, tools, os.path.join(workdir, "bf16"),
             os.path.join(workdir, "zoo", "cnn"), run64.splits,
             os.path.join(workdir, "thesis"))
+        stage("phase 19: the model and spatial axes")
+        launches_axes = phase_axes(torch, dev, card,
+                                   os.path.join(workdir, "axes"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     by_phase = {"phase4_iwgan_f32": launches, "phase6_iwgan_bf16": launches_bf16,
@@ -2849,14 +3217,15 @@ def main() -> int:
                 **{f"phase15_{k}": v for k, v in launches_zoo_rest.items()},
                 **{f"phase16_{k}": v for k, v in launches_celeb_coco.items()},
                 **{f"phase17_{k}": v for k, v in launches_dp.items()},
-                **{f"phase18_{k}": v for k, v in launches_tools.items()}}
+                **{f"phase18_{k}": v for k, v in launches_tools.items()},
+                **{f"phase19_{k}": v for k, v in launches_axes.items()}}
     print(json.dumps({"kernels": [{
         "name": "gather_u8_normalize", "route": "triton",
         "source": "hemx_torch/ops/input_kernels.py",
         "replaces": "hemx/ops/pallas_kernels.py:75",
         "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
         **kern}]}), flush=True)
-    print(f"phase 18 took {time.perf_counter() - marks[-1]:.1f} s; the script "
+    print(f"phase 19 took {time.perf_counter() - marks[-1]:.1f} s; the script "
           f"{time.perf_counter() - marks[0]:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

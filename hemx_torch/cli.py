@@ -22,9 +22,13 @@ converted from its raw files in ``--raw_dataset_dir`` first:
 
 ``--n_devices N`` trains data parallel in N processes (one per GPU; gloo
 ones with ``--device cpu``) at hemx's global batch, ``batch_size * N``;
-under ``torchrun`` the processes join its group:
+under ``torchrun`` the processes join its group. ``--model_parallel M``
+(every kernel sliced over M ranks) or ``--spatial_parallel S`` (every
+image's height banded over S ranks) makes the N ranks hemx's grid
+``[N/K, K]``, at the global batch ``batch_size * N / K``:
 
     python -m hemx_torch.cli ... --n_devices 2 --device cpu
+    python -m hemx_torch.cli ... --n_devices 4 --model_parallel 2 --device cpu
     python -m torch.distributed.run --nproc_per_node 2 -m hemx_torch.cli ...
 
 Flags are ``hemx``'s (see ``hemx_torch.config``) plus ``--device``
@@ -50,7 +54,7 @@ class CliError(Exception):
         self.code = code
 
 
-def build(argv=None, splits=None):
+def build(argv=None, splits=None, axes: bool = True):
     """Parse the flags and build what a run trains: ``(args, device, model,
     splits)``. Checks the mesh flags, the device, then the model (exit
     code 2 when it is unknown), then the dataset, before any data is
@@ -59,7 +63,11 @@ def build(argv=None, splits=None):
     missing is converted by one rank while the others wait on its lock,
     outside any collective (``prepare_dataset``). ``splits``: the
     dataset's splits for these flags when the caller holds them already
-    (runs in one process over the same data), made here otherwise."""
+    (runs in one process over the same data), made here otherwise.
+    ``axes``: lay the group out as ``--model_parallel`` /
+    ``--spatial_parallel`` ask (``train.py``); the other entry points
+    (``paper_train``, ``experimental``) ignore both flags, as hemx's
+    build a data-only mesh."""
     from hemx_torch.config import parse_args
     from hemx_torch.data.plugin import (get_dataset, get_dataset_tensors,
                                         unknown_dataset_message)
@@ -68,7 +76,7 @@ def build(argv=None, splits=None):
     from hemx_torch.parallel import dp, mesh
 
     args = parse_args(argv)
-    n = workers(args)
+    n = workers(args, axes)
     world = dp.world_size()
     if world > 1 or dist.is_initialized():
         if args.n_devices and args.n_devices != world:
@@ -91,20 +99,32 @@ def build(argv=None, splits=None):
     if dp.active():
         args.seed, args.dir = json.loads(dp.broadcast_bytes(
             json.dumps([args.seed, args.dir]).encode(), device))
+    if dist.is_initialized():
+        if axes:
+            mesh.make_axes(args.model_parallel, args.spatial_parallel)
+        else:
+            dp.set_axis(None)
     set_precision(args.precision)
     model = model_cls(args, device)
     return args, device, model, (get_dataset_tensors(args) if splits is None
                                  else splits)
 
 
-def workers(args) -> int:
-    """Processes ``args`` train on (``--n_devices``), after the refusals
-    of hemx's ``make_mesh``: more GPUs than the host has, and the
-    ``model`` and ``spatial`` axes."""
+def workers(args, axes: bool = True) -> int:
+    """Processes ``args`` train on (``--n_devices``; the group's size in
+    one), after the refusals of hemx's ``make_mesh``: both axes at once,
+    more GPUs than the host has, and an axis that does not divide the
+    devices (``--model_parallel 2`` on a one-GPU host: "does not divide 1
+    device(s)"). ``axes`` False: the axis flags are ignored."""
     from hemx_torch.parallel import mesh
     try:
-        mesh.check_axes(args.model_parallel, args.spatial_parallel)
-        return mesh.worker_count(args.n_devices, args.device)
+        model, spatial = ((args.model_parallel, args.spatial_parallel)
+                          if axes else (1, 1))
+        mesh.check_axes(model, spatial)
+        n = (dist.get_world_size() if dist.is_initialized()
+             else mesh.worker_count(args.n_devices, args.device))
+        mesh.check_axes(model, spatial, n)
+        return n
     except ValueError as e:
         raise CliError(str(e)) from None
 
@@ -128,13 +148,14 @@ def run(argv=None, splits=None) -> dict:
     return train(*build(argv, splits))
 
 
-def main(argv=None, run=run) -> int:
+def main(argv=None, run=run, axes: bool = True) -> int:
     """Exit code of ``run(argv)``: 0, 255 on a non-finite gradient, 2 for
     an unknown model, 1 for other refusals. With ``--n_devices N > 1`` and
     no process group, ``run`` goes to N spawned worker processes, one per
     device (gloo ones for ``--device cpu``) that form the group, and the
     first nonzero exit of a worker is the command's; a process ``torchrun``
-    started joins its group (``env://``) instead."""
+    started joins its group (``env://``) instead. ``axes``: as
+    :func:`build`'s."""
     from hemx_torch.config import parse_base_args
     from hemx_torch.parallel import mesh
     try:
@@ -147,7 +168,7 @@ def main(argv=None, run=run) -> int:
                 return _main(argv, run)
             finally:
                 mesh.shutdown()
-        n = workers(args)
+        n = workers(args, axes)
         if n == 1:
             return _main(argv, run)
         return _spawn(argv, run, n, args)

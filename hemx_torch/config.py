@@ -7,9 +7,9 @@ plugin's ``arguments()``, as in ``hemx``. ``@FILE`` (or ``--config FILE``)
 reads flags from one of hemx's config files (``key value`` lines, ``#``
 comments, e.g. ``examples/improved_sampler/a1.config``), expanded in place
 so later flags override it. ``--n_devices`` (alias ``--n_gpus``) is
-hemx's: devices of the data-parallel run, ``--batch_size`` per device;
-``--model_parallel`` and ``--spatial_parallel`` parse and are refused
-above 1 (``hemx_torch.parallel.mesh``). ``--buffer_size``,
+hemx's: devices of the run, ``--batch_size`` per data shard;
+``--model_parallel`` and ``--spatial_parallel`` are hemx's ``model`` and
+``spatial`` mesh axes (``hemx_torch.parallel.mesh``, ``tp``, ``sp``). ``--buffer_size``,
 ``--cache_dir`` and ``--n_threads`` are accepted and unread, as in
 ``hemx``. Parsing is ``hemx``'s
 three phases — general flags, then the dataset's, then the model's — and
@@ -60,10 +60,10 @@ def build_base_parser() -> argparse.ArgumentParser:
                            "--batch_size rows of the global batch.")
     misc.add_argument("--model_parallel", type=int, default=1,
                       help="Tensor-parallel degree (hemx's 'model' mesh "
-                           "axis); not ported: above 1 is refused.")
+                           "axis): every kernel sliced over this many ranks.")
     misc.add_argument("--spatial_parallel", type=int, default=1,
                       help="Spatial-parallel degree (hemx's 'spatial' mesh "
-                           "axis); not ported: above 1 is refused.")
+                           "axis): image height banded over this many ranks.")
     misc.add_argument("--profile", action="store_true", default=False,
                       help="Record a torch.profiler trace of up to ten train "
                            "calls of the first epoch into <dir>/profile.")

@@ -35,6 +35,13 @@ the uint32[2] key, ``epoch`` an int64 (0-d array or numpy scalar).
 Loading checks that the tree
 has exactly the leaves and shapes of the port's own, no more and no fewer.
 Values cross as numpy arrays; this module never imports JAX.
+
+Under ``--model_parallel`` (``hemx_torch.parallel.tp``) the trees hold
+whole tensors: a sliced kernel and its optimizer moments are gathered
+from the axis group's slices on the way out (every rank of the group
+calls in), and each rank loads its slice of the whole tensor, so a
+checkpoint has the same tree and bytes as a one-process run's and either
+resumes the other.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 import torch.nn as nn
 
 from hemx_torch.ops.layers import Conv2d, Deconv2d, Dense
+from hemx_torch.parallel import tp
 from hemx_torch.train.optimizers import Moments, Optimizer
 
 _W_TO_TORCH = {Conv2d: lambda t: t.permute(3, 2, 0, 1),
@@ -77,12 +85,16 @@ def _layout(net: nn.Module, path: tuple, t: torch.Tensor, table) -> torch.Tensor
 
 
 def state_dict_from_jax(net: nn.Module, params: dict, mstate: dict) -> dict:
-    """``hemx`` params + mstate pytrees -> a ``state_dict`` for ``net``."""
+    """``hemx`` params + mstate pytrees -> a ``state_dict`` for ``net``
+    (under the model axis, this rank's slice of each sliced kernel)."""
     sd = {}
+    own = dict(net.named_parameters())
     for tree in (params, mstate):
         for path, leaf in flatten_tree(tree).items():
             t = torch.from_numpy(np.array(leaf, dtype=np.float32))
-            sd[".".join(path)] = _layout(net, path, t, _W_TO_TORCH)
+            name = ".".join(path)
+            t = _layout(net, path, t, _W_TO_TORCH)
+            sd[name] = tp.local_part(t, own[name]) if name in own else t
     return sd
 
 
@@ -130,7 +142,8 @@ def _trees(net: nn.Module, leaf: Callable) -> tuple[dict, dict]:
     params = dict(net.named_parameters())
     buffers = dict(net.named_buffers())
     return (_module_tree(net, _param_names,
-                         lambda n: leaf(jax_view(net, n, params[n]))),
+                         lambda n: leaf(jax_view(net, n, tp.full(
+                             params[n], params[n])))),
             _module_tree(net, _buffer_names,
                          lambda n: leaf(jax_view(net, n, buffers[n]))))
 
@@ -146,11 +159,13 @@ def opt_state_to_jax(opt: Optimizer, leaf: Callable = _numpy):
     a parameter-shaped tree in ``hemx`` layout, a step count as a 0-d
     int32 array."""
     net = opt.module
+    params = dict(net.named_parameters())
 
     def walk(state):
         if isinstance(state, Moments):
             return _module_tree(net, _param_names,
-                                lambda n: leaf(jax_view(net, n, state[n])))
+                                lambda n: leaf(jax_view(net, n, tp.full(
+                                    state[n], params[n]))))
         if isinstance(state, dict):
             return {k: walk(v) for k, v in state.items()}
         return np.asarray(state, np.int32)
@@ -205,6 +220,7 @@ def check_same_structure(want, got, path: tuple = ()) -> None:
 
 def _load_opt_state(opt: Optimizer, tree) -> None:
     net = opt.module
+    params = dict(net.named_parameters())
 
     def walk(state, sub):
         if isinstance(state, Moments):
@@ -213,7 +229,7 @@ def _load_opt_state(opt: Optimizer, tree) -> None:
                 name = ".".join(path)
                 t = torch.from_numpy(np.array(leaf, dtype=np.float32))
                 t = _layout(net, path, t, _W_TO_TORCH)
-                out[name] = state[name].copy_(t)
+                out[name] = state[name].copy_(tp.local_part(t, params[name]))
             return out
         if isinstance(state, dict):
             return {k: walk(v, sub[k]) for k, v in state.items()}

@@ -25,12 +25,17 @@ Batches are dicts of device tensors: a ``U8Normalize`` key as (B, C, H, W)
 float32 in channels_last memory, any other 4-D key permuted to (B, C, H, W)
 the same way, other keys as they are.
 
-In a process group of W ranks both feeders walk hemx's order of global
-batches (``global_batch`` rows each) and rank r takes rows
-``[r*B : (r+1)*B]`` of each, B = global_batch / W, as hemx shards a batch
-over its ``data`` axis: the cache gathers only those rows (every rank holds
-the whole dataset), the streaming feeder ships ``dp.host_slice`` of each
-host batch.
+In a process group both feeders walk hemx's order of global batches
+(``global_batch`` rows each) and a rank of data index d takes rows
+``[d*B : (d+1)*B]`` of each, B = global_batch / ``dp.data_axis_size()``, as hemx
+shards a batch over its ``data`` axis: the cache gathers only those rows
+(every rank holds the whole dataset), the streaming feeder ships
+``dp.host_slice`` of each host batch. With ``bands`` (a model that runs on
+bands, under ``--spatial_parallel``) each rank also keeps only its height
+band of every leaf hemx bands (``dp.band_rows``): the cache reads only the
+band's bytes (``gather_u8_normalize``'s ``rows``, or an ``index_select``
+of the band's view), the streaming feeder cuts the band on the host, so
+only its bytes cross to the device.
 """
 
 from __future__ import annotations
@@ -326,14 +331,15 @@ class DeviceDataPipeline:
 
     def __init__(self, split: Split, global_batch: int, *, device,
                  keys=None, shuffle: bool = True, seed: int = 0,
-                 group: int = 1):
+                 group: int = 1, bands: bool = False):
         self.split = split
         self.global_batch = global_batch
         self.shuffle = shuffle
         self.seed = seed
         self.group = max(int(group), 1)
         self.device = torch.device(device)
-        self.batch = global_batch // dp.world_size()
+        self.batch = global_batch // dp.data_axis_size()
+        self.bands = bands
         use = {k: v for k, v in _source_arrays(split).items()
                if not keys or k in keys}
         memo = getattr(split.source, "_device_arrays", None)
@@ -350,7 +356,7 @@ class DeviceDataPipeline:
     @classmethod
     def maybe(cls, split: Split, global_batch: int, *, device, keys=None,
               shuffle: bool = True, seed: int = 0, budget_mb: int = 1024,
-              group: int = 1):
+              group: int = 1, bands: bool = False):
         """The pipeline if the split qualifies (in-memory arrays, no host
         ``batch_transform``, within ``budget_mb``), else None (the caller
         streams). Memoized on the split, so per-epoch validation reuses
@@ -358,7 +364,7 @@ class DeviceDataPipeline:
         if split.batch_transform is not None:
             return None
         memo_key = (global_batch, tuple(sorted(keys or ())), shuffle, seed,
-                    str(torch.device(device)), max(int(group), 1))
+                    str(torch.device(device)), max(int(group), 1), bands)
         memo = split._device_pipelines
         if memo_key in memo:
             return memo[memo_key]
@@ -370,14 +376,18 @@ class DeviceDataPipeline:
         if not use or sum(v.nbytes for v in use) > budget_mb * 1024 * 1024:
             return None
         memo[memo_key] = cls(split, global_batch, device=device, keys=keys,
-                             shuffle=shuffle, seed=seed, group=group)
+                             shuffle=shuffle, seed=seed, group=group,
+                             bands=bands)
         return memo[memo_key]
 
     def _gather(self, key: str, idx: torch.Tensor) -> torch.Tensor:
         v = self.ds[key]
         t = self.transform
+        rows = dp.band_rows(v.shape[1], self.bands) if v.dim() >= 3 else None
         if t is not None and key in t.keys:  # raises unless v is uint8
-            return gather_u8_normalize(v, idx, t.lo, t.hi)
+            return gather_u8_normalize(v, idx, t.lo, t.hi, rows)
+        if rows is not None:
+            v = v[:, rows[0]:rows[1]]
         out = v.index_select(0, idx)
         return out.permute(0, 3, 1, 2) if out.dim() == 4 else out
 
@@ -455,7 +465,7 @@ class Pipeline:
 
     def __init__(self, split: Split, global_batch: int, *, device,
                  keys=None, shuffle: bool = True, seed: int = 0,
-                 depth: int = 2, group: int = 1):
+                 depth: int = 2, group: int = 1, bands: bool = False):
         self.split = split
         self.global_batch = global_batch
         self.keys = keys
@@ -464,7 +474,8 @@ class Pipeline:
         self.depth = depth
         self.group = max(int(group), 1)
         self.device = torch.device(device)
-        self.batch = global_batch // dp.world_size()
+        self.batch = global_batch // dp.data_axis_size()
+        self.bands = bands
         self.h2d_bytes = 0
         self.h2d_s = 0.0
         self.stage_s = 0.0
@@ -477,8 +488,9 @@ class Pipeline:
         for batch in self.split.iter_epoch(
                 self.global_batch, shuffle=self.shuffle, seed=self.seed,
                 epoch=epoch):
-            pending.append(dp.host_slice({k: v for k, v in batch.items()
-                                          if not self.keys or k in self.keys}))
+            pending.append(dp.host_slice(
+                {k: v for k, v in batch.items()
+                 if not self.keys or k in self.keys}, bands=self.bands))
             if len(pending) == self.group:
                 yield _stack(pending)
                 pending = []

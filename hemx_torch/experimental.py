@@ -33,7 +33,7 @@ def run(argv=None) -> dict:
     "estimator", the estimator's loop result."""
     from hemx_torch.train import loop
 
-    args, device, _, splits = cli.build(argv)
+    args, device, _, splits = cli.build(argv, axes=False)
     if dp.is_primary():
         init_working_dir(args)
 
@@ -56,7 +56,7 @@ def run(argv=None) -> dict:
 
 
 def main(argv=None) -> int:
-    return cli.main(argv, run=run)
+    return cli.main(argv, run=run, axes=False)
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ from hemx_torch.models.plugin import ModelPlugin
 from hemx_torch.ops import losses as L
 from hemx_torch.ops.activations import lrelu
 from hemx_torch.ops.layers import Conv2d, Deconv2d, Dense, Flatten, Sequential
+from hemx_torch.parallel import sp
 from hemx_torch.train.optimizers import init_optimizer
 
 
@@ -61,14 +62,10 @@ def decoder(c: int, h: int, w: int, latent: int, kw: dict, *,
     return Sequential(layers)
 
 
-def crop(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The decoder output cropped to the input's H and W."""
-    return d[:, :, :x.shape[2], :x.shape[3]]
-
-
 class CnnModel(ModelPlugin):
     name = "cnn"
     batch_keys = ("image",)
+    band_input = True
 
     @staticmethod
     def arguments() -> dict:
@@ -98,10 +95,14 @@ class CnnModel(ModelPlugin):
 
     @staticmethod
     def _forward(net, image, capture=None):
-        """(reconstruction in [-1, 1], L1 loss) of a [0, 1] batch."""
+        """(reconstruction in [-1, 1], L1 loss) of a [0, 1] batch; under
+        ``--spatial_parallel`` of this rank's band of it (the encoder runs
+        on bands, ``Flatten`` gathers them, the decoder's ``Unflatten``
+        cuts them again)."""
         x = 2.0 * (image - 0.5)
-        d, _ = net(x, capture)
-        d = crop(d, x)
+        with sp.bands() as state:
+            d, _ = net(x, capture)
+        d = state.rows(d, x.shape[2] * sp.size())[:, :, :, :x.shape[3]]
         return d, L.l1_loss(x, d)
 
     def train(self, ts: common.TrainState, stream):
@@ -112,7 +113,8 @@ class CnnModel(ModelPlugin):
         grads = torch.autograd.grad(loss, params)
         ts.opt.step(grads)
         ts.step += 1
-        metrics = {"loss": loss.detach(), "grad_norm": common.grad_norm(grads)}
+        metrics = {"loss": loss.detach(),
+                   "grad_norm": common.grad_norm(grads, ts.nets)}
         if getattr(self.args, "check_numerics", False):
             metrics["grad_finite"] = common.grad_finite_report("", ts.nets,
                                                                grads)

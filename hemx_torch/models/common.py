@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from hemx_torch.convert import jax_view
-from hemx_torch.parallel import dp
+from hemx_torch.parallel import dp, sp, tp
 
 # noise streams drawn at one (key, step)
 TRAIN, EVAL, SAMPLE, REPORT, DIAG = range(5)
@@ -67,9 +67,10 @@ def draw_noise(gen: torch.Generator, batch: int, latent: int, *,
     VAE ``eps``), plus the GP's ``alpha`` (B, 1) uniform for an IWGAN
     critic substep (``hemx/models/gan.py:229-231,254,289-291``). In a
     process group each draw is made for the global batch and this rank
-    keeps its rows, so every rank's generator stays in step."""
+    keeps its rows, so every rank's generator stays in step (the ranks of
+    one data index, its slices or bands, draw the same rows)."""
     dev = gen.device
-    rows = batch * dp.world_size()
+    rows = batch * dp.data_axis_size()
     out = {key: torch.randn((rows, latent), generator=gen, device=dev)}
     if alpha:
         out["alpha"] = torch.rand((rows, 1), generator=gen, device=dev)
@@ -113,9 +114,13 @@ def raise_on_bad_grads(metrics: dict) -> None:
             "GRADIENT ERROR (NaN/Inf) on parameter(s): " + ", ".join(sorted(bad)))
 
 
-def grad_norm(grads) -> torch.Tensor:
-    """Global L2 norm of a sequence of gradients (``optax.global_norm``)."""
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+def grad_norm(grads, net: nn.Module | None = None) -> torch.Tensor:
+    """Global L2 norm of a sequence of gradients (``optax.global_norm``);
+    given ``net`` (the gradients in its ``parameters()`` order), the norm
+    of the whole kernels under the model axis."""
+    if net is None:
+        return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    return torch.sqrt(tp.sum_squares(grads, list(net.parameters())))
 
 
 def host_scalars(metrics: dict) -> dict:
@@ -171,11 +176,13 @@ def nhwc(t: torch.Tensor) -> torch.Tensor:
 class Unflatten(nn.Module):
     """(B, h*w*c) -> (B, c, h, w), reading the flat vector in NHWC order
     like ``hemx.models.common.unflatten``; the result is channels_last in
-    memory."""
+    memory. In a spatial scope (``sp.bands``) it is cut to this rank's
+    band, and the network runs on bands from here."""
 
     def __init__(self, h: int, w: int, c: int):
         super().__init__()
         self.hwc = (h, w, c)
 
     def forward(self, x):
-        return x.reshape((x.shape[0],) + self.hwc).permute(0, 3, 1, 2), {}
+        y = x.reshape((x.shape[0],) + self.hwc).permute(0, 3, 1, 2)
+        return sp.enter(y), {}

@@ -61,7 +61,7 @@ def draw_noise(net: nn.Module, gen: torch.Generator, x: torch.Tensor) -> dict:
     rows."""
     n, _, h, w = x.shape
     out = {}
-    for name, d in net.noise_draws(n * dp.world_size(), h, w).items():
+    for name, d in net.noise_draws(n * dp.data_axis_size(), h, w).items():
         u = torch.rand(d.shape, generator=gen, device=gen.device)
         u = dp.slice_rows(u)
         out[name] = u < d.p if isinstance(d, Keep) else u * (d.hi - d.lo) + d.lo
@@ -192,7 +192,7 @@ class ConditionalGanBase(ModelPlugin):
         return self._flags({"d_loss": d_loss.detach(),
                             "d_real": d_real.detach(),
                             "d_fake": d_fake.detach(),
-                            "d_grad_norm": common.grad_norm(grads)},
+                            "d_grad_norm": common.grad_norm(grads, D)},
                            "d", D, grads)
 
     def g_step(self, ts: common.TrainState, batch: dict, noise: dict) -> dict:
@@ -211,7 +211,7 @@ class ConditionalGanBase(ModelPlugin):
         commit_moving_stats(G, g_stats)
         ts.step += 1
         return self._flags({"g_loss": g_loss.detach(), "g_gan": g_gan.detach(),
-                            "g_grad_norm": common.grad_norm(grads),
+                            "g_grad_norm": common.grad_norm(grads, G),
                             **{k: v.detach() for k, v in extra_g.items()},
                             **extra}, "g", G, grads)
 

@@ -32,6 +32,10 @@ three regimes picked by ``model_type``).
   discarded; the reported ``d_loss`` uses ``d_real`` from the current D and
   ``d_fake`` from G's forward; G's BN moving stats are committed.
 * Run eagerly; ``step`` goes up by one per call.
+* ``--spatial_parallel``: D runs on height bands, G's output is this
+  rank's band (:meth:`_generate`), the IWGAN's GP runs on whole rows
+  (:meth:`_critic_loss`); ``--model_parallel`` needs nothing here (the
+  layers slice their kernels).
 * ``--check_numerics``: each step reports per-parameter finite-ness flags;
   the critic's are ANDed across its substeps (``gan.py:520-533``).
 """
@@ -50,6 +54,7 @@ from hemx_torch.ops import losses as L
 from hemx_torch.ops.activations import lrelu
 from hemx_torch.ops.layers import (Conv2d, Deconv2d, Dense, Flatten,
                                    Sequential, commit_moving_stats)
+from hemx_torch.parallel import sp
 from hemx_torch.train.optimizers import clip_params, init_optimizer
 
 WGAN_CLIP = 0.01
@@ -59,6 +64,7 @@ class GanModel(ModelPlugin):
     name = "gan"
     model_type = "gan"
     batch_keys = ("image",)
+    band_input = True
 
     @staticmethod
     def arguments() -> dict:
@@ -118,8 +124,21 @@ class GanModel(ModelPlugin):
         return 1 if self.model_type == "gan" else self.args.n_disc_train + 1
 
     @staticmethod
-    def _scores(net, x):
-        return net(x)[0].reshape(-1)
+    def _scores(net, x, banded: bool = True):
+        """D's scores of ``x``: under ``--spatial_parallel`` a band unless
+        ``banded`` is False (the GP's whole-height rows)."""
+        with sp.bands(banded):
+            return net(x)[0].reshape(-1)
+
+    @staticmethod
+    def _generate(G, z):
+        """G's images of ``z`` and its new BN stats; under
+        ``--spatial_parallel`` this rank's band of them (G's ``Unflatten``
+        cuts its tensor and the deconvs run on bands; hemx's
+        ``_pin_fake``)."""
+        with sp.bands(False) as state:
+            g, stats = G(z)
+        return state.band(g), stats
 
     def _g_loss(self, d_fake):
         return (L.gan_g_loss(d_fake) if self.model_type == "gan"
@@ -133,10 +152,12 @@ class GanModel(ModelPlugin):
         """D's scores of ``x`` and of ``g`` in two passes; with ``commit``,
         D keeps the BN stats of the fake pass, which starts from the real
         pass's (``gan.py:247-251``)."""
-        d_real, ms1 = D(x)
+        with sp.bands():
+            d_real, ms1 = D(x)
         if commit:
             commit_moving_stats(D, ms1)
-        d_fake, ms2 = D(g)
+        with sp.bands():
+            d_fake, ms2 = D(g)
         if commit:
             commit_moving_stats(D, ms2)
         return d_real.reshape(-1), d_fake.reshape(-1)
@@ -144,13 +165,20 @@ class GanModel(ModelPlugin):
     def _critic_loss(self, D, x, g, noise, *, commit: bool):
         """The critic's training loss: for IWGAN the Wasserstein loss of one
         2B pass over ``cat([x, g])`` plus 10 * gradient penalty, otherwise
-        the loss of the two passes of :meth:`_real_fake`."""
+        the loss of the two passes of :meth:`_real_fake`.
+
+        Under ``--spatial_parallel`` the IWGAN's loss follows hemx's split
+        (``hemx/models/gan.py:412-500``): the Wasserstein term over bands,
+        the GP on whole-height rows gathered from them, the same on every
+        rank of a data index (hemx pins it to the data-parallel layout);
+        the one backward of their sum is ``gw + 10 * ggp``, and averaging
+        over every rank counts the GP's gradient once."""
         if self.model_type != "iwgan":
             return self._d_loss(*self._real_fake(D, x, g, commit=commit))
         n = x.shape[0]
         both = self._scores(D, torch.cat([x, g]))
-        gp = L.gradient_penalty(lambda t: self._scores(D, t), x, g,
-                                noise["alpha"],
+        gp = L.gradient_penalty(lambda t: self._scores(D, t, banded=False),
+                                sp.gather(x), sp.gather(g), noise["alpha"],
                                 per_sample=getattr(self.args, "gp_per_sample",
                                                    False))
         return L.wgan_d_loss(both[:n], both[n:]) + 10.0 * gp
@@ -174,7 +202,8 @@ class GanModel(ModelPlugin):
         G, D = ts.nets["generator"], ts.nets["discriminator"]
         x = 2.0 * (batch["image"] - 0.5)
         with torch.no_grad():
-            g, _ = G(noise["z"])  # training-mode BN; new stats discarded
+            # training-mode BN; new stats discarded
+            g, _ = self._generate(G, noise["z"])
         d_loss = self._critic_loss(D, x, g, noise, commit=True)
         grads = torch.autograd.grad(d_loss, list(D.parameters()))
         self._apply(ts, "d", D, grads)
@@ -185,7 +214,7 @@ class GanModel(ModelPlugin):
         reported ``d_loss``) (WGAN, IWGAN)."""
         G, D = ts.nets["generator"], ts.nets["discriminator"]
         x = 2.0 * (batch["image"] - 0.5)
-        g, g_stats = G(noise["z"])
+        g, g_stats = self._generate(G, noise["z"])
         d_fake = self._scores(D, g)
         g_loss = self._g_loss(d_fake)
         grads = torch.autograd.grad(g_loss, list(G.parameters()))
@@ -206,7 +235,7 @@ class GanModel(ModelPlugin):
         G those of its forward (``gan.py:178-220``)."""
         G, D = ts.nets["generator"], ts.nets["discriminator"]
         x = 2.0 * (batch["image"] - 0.5)
-        g, g_stats = G(noise["z"])
+        g, g_stats = self._generate(G, noise["z"])
         d_real, d_fake = self._real_fake(D, x, g, commit=True)
         d_loss, g_loss = L.gan_d_loss(d_real, d_fake), L.gan_g_loss(d_fake)
         d_grads = torch.autograd.grad(d_loss, list(D.parameters()),
@@ -268,7 +297,7 @@ class GanModel(ModelPlugin):
             common.generator(ts, common.EVAL, self.device), x.shape[0],
             self.args.latent_size) if noise is None
             else common.seam(noise, self.device))
-        g, _ = G(noise["z"])
+        g, _ = self._generate(G, noise["z"])
         d_real, d_fake = self._real_fake(D, x, g, commit=False)
         return {"g_loss": self._g_loss(d_fake),
                 "d_loss": self._d_loss(d_real, d_fake)}

@@ -83,7 +83,7 @@ class MeanDepthEstimator(ModelPlugin):
         ts.opt.step(grads)
         ts.step += 1
         metrics = {"m_loss": loss.detach(),
-                   "m_grad_norm": common.grad_norm(grads)}
+                   "m_grad_norm": common.grad_norm(grads, ts.nets)}
         if getattr(self.args, "check_numerics", False):
             metrics["grad_finite"] = common.grad_finite_report("", ts.nets,
                                                                grads)

@@ -28,6 +28,8 @@ from typing import Optional
 
 import torch
 
+from hemx_torch.parallel import tp
+
 # name -> "module:Class", imported on lookup
 _REGISTRY = {"cnn": "hemx_torch.models.cnn:CnnModel",
              "vae": "hemx_torch.models.vae:VaeModel",
@@ -66,6 +68,13 @@ class ModelPlugin:
     #: Input-batch keys this model consumes, or None for all.
     batch_keys: Optional[tuple] = None
 
+    #: Under ``--spatial_parallel`` the feeders hand this model its height
+    #: band of each image leaf (it runs its networks on bands,
+    #: ``hemx_torch.parallel.sp``); otherwise whole rows, the same on every
+    #: rank of a data index, as hemx's ``_pin_dp`` reshards the
+    #: conditional families' batches.
+    band_input: bool = False
+
     @staticmethod
     def arguments() -> dict:
         return {}
@@ -81,10 +90,14 @@ class ModelPlugin:
     def build_nets(self, image_shape, seed: int):
         """Fresh networks for images of shape (C, H, W), their weights
         drawn on the CPU from ``seed`` (so every device starts from the
-        same weights), moved to the model's device."""
+        same weights), moved to the model's device; under
+        ``--model_parallel`` each rank keeps its slice of every kernel
+        (``hemx_torch.parallel.tp.shard_module``)."""
         gen = torch.Generator()
         gen.manual_seed(seed)
-        return self._build(tuple(image_shape), gen).to(self.device)
+        nets = self._build(tuple(image_shape), gen).to(self.device)
+        tp.shard_module(nets)
+        return nets
 
     def input_shape(self, host_batch: dict) -> tuple:
         """(C, H, W) of the input the networks are built for: the

@@ -31,16 +31,18 @@ import torch
 import torch.nn as nn
 
 from hemx_torch.models import common
-from hemx_torch.models.cnn import crop, decoder, encoder
+from hemx_torch.models.cnn import decoder, encoder
 from hemx_torch.models.plugin import ModelPlugin
 from hemx_torch.ops import losses as L
 from hemx_torch.ops.layers import Dense, Flatten, Sequential, commit_moving_stats
+from hemx_torch.parallel import sp
 from hemx_torch.train.optimizers import init_optimizer
 
 
 class VaeModel(ModelPlugin):
     name = "vae"
     batch_keys = ("image",)
+    band_input = True
 
     @staticmethod
     def arguments() -> dict:
@@ -81,16 +83,25 @@ class VaeModel(ModelPlugin):
 
     @staticmethod
     def _forward(nets, x, eps, capture=None):
-        """(reconstruction, z_mean, z_stddev, the encoder's new BN stats)."""
-        e, stats = nets["encoder"](x, capture)
-        z_mean, _ = nets["z_mean"](e, capture)
-        z_stddev, _ = nets["z_stddev"](e, capture)
-        d, _ = nets["decoder"](z_mean + z_stddev * eps, capture)
-        return crop(d, x), z_mean, z_stddev, stats
+        """(reconstruction, z_mean, z_stddev, the encoder's new BN stats);
+        under ``--spatial_parallel`` the encoder runs on bands, each head's
+        ``Flatten`` gathers them, the decoder's ``Unflatten`` cuts them and
+        the reconstruction is this rank's band."""
+        with sp.bands() as enc:
+            e, stats = nets["encoder"](x, capture)
+        with sp.bands(enc.banded):
+            z_mean, _ = nets["z_mean"](e, capture)
+        with sp.bands(enc.banded):
+            z_stddev, _ = nets["z_stddev"](e, capture)
+        with sp.bands(False) as dec:
+            d, _ = nets["decoder"](z_mean + z_stddev * eps, capture)
+        d = dec.rows(d, x.shape[2] * sp.size())[:, :, :, :x.shape[3]]
+        return d, z_mean, z_stddev, stats
 
     @staticmethod
     def _losses(x, d, z_mean, z_stddev) -> dict:
-        d_loss = L.bernoulli_recon_loss(x, d)
+        with sp.bands():  # sums over the bands of every rank
+            d_loss = L.bernoulli_recon_loss(x, d)
         l_loss = L.kl_gaussian_loss(z_mean, z_stddev)
         return {"d_loss": d_loss, "l_loss": l_loss,
                 "total_loss": d_loss + l_loss}
@@ -119,7 +130,7 @@ class VaeModel(ModelPlugin):
         commit_moving_stats(ts.nets["encoder"], stats)
         ts.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["grad_norm"] = common.grad_norm(grads)
+        metrics["grad_norm"] = common.grad_norm(grads, ts.nets)
         if getattr(self.args, "check_numerics", False):
             metrics["grad_finite"] = common.grad_finite_report("", ts.nets,
                                                                grads)

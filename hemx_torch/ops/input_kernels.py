@@ -22,6 +22,14 @@ load per row needs no tensor cores, shared-memory staging or warp
 specialisation; Triton's masked vector loads and stores reach DRAM
 bandwidth, and it compiles at first launch without an nvcc build step.
 
+A height band (``rows=(h0, h1)``): under ``--spatial_parallel`` a rank
+needs only rows ``[h0, h1)`` of each image (``hemx.parallel.mesh
+.batch_spec`` shards height). In NHWC those are one contiguous run of
+``(h1-h0)*W*C`` bytes at offset ``h0*W*C`` of each dataset row, so the band
+is the same kernel with a row offset and a shorter row: each program reads
+only the band's bytes and writes a (R, C, h1-h0, W) batch. The default is
+the whole height.
+
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (:func:`gather_u8_normalize_ref`); a CUDA tensor launches the kernel or
 raises — there is no fallback.
@@ -48,13 +56,25 @@ def reset_launches() -> None:
 
 
 def gather_u8_normalize_ref(ds: torch.Tensor, idx: torch.Tensor,
-                            lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+                            lo: float = 0.0, hi: float = 1.0,
+                            rows: tuple | None = None) -> torch.Tensor:
     """Plain PyTorch version: gather rows ``idx`` of the uint8 NHWC dataset
-    ``ds`` and normalize to ``[lo, hi]``; returns (R, C, H, W) float32 in
+    ``ds`` (image rows ``[h0, h1)`` of each with ``rows=(h0, h1)``) and
+    normalize to ``[lo, hi]``; returns (R, C, h1-h0, W) float32 in
     channels_last memory. ``scale`` is the Python float ``(hi-lo)/255.0``
     exactly as in ``hemx.ops.pallas_kernels.u8_normalize``."""
     scale = (hi - lo) / 255.0
-    return ds.index_select(0, idx).permute(0, 3, 1, 2).float() * scale + lo
+    h0, h1 = _band(ds, rows)
+    return (ds[:, h0:h1].index_select(0, idx).permute(0, 3, 1, 2).float()
+            * scale + lo)
+
+
+def _band(ds: torch.Tensor, rows) -> tuple[int, int]:
+    h = ds.shape[1]
+    h0, h1 = (0, h) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= h0 < h1 <= h:
+        raise ValueError(f"rows {rows} is not a band of height {h}")
+    return h0, h1
 
 
 def _check(ds: torch.Tensor, idx: torch.Tensor) -> None:
@@ -81,49 +101,59 @@ def _kernel():
 
     @triton.jit
     def gather_u8_normalize_kernel(ds_ptr, idx_ptr, out_ptr, row_elems,
-                                   scale, lo, BLOCK: tl.constexpr):
-        # grid = (gathered rows, blocks per row); one program normalizes
-        # BLOCK contiguous bytes of one dataset row
+                                   band_start, band_elems, scale, lo,
+                                   BLOCK: tl.constexpr):
+        # grid = (gathered rows, blocks per band); one program normalizes
+        # BLOCK contiguous bytes of one dataset row's band, which starts
+        # band_start bytes into the row (0 and row_elems: the whole row)
         row = tl.program_id(0)
         blk = tl.program_id(1)
         src = tl.load(idx_ptr + row).to(tl.int64)
         offs = blk * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < row_elems
-        x = tl.load(ds_ptr + src * row_elems + offs, mask=mask, other=0)
+        mask = offs < band_elems
+        x = tl.load(ds_ptr + src * row_elems + band_start + offs, mask=mask,
+                    other=0)
         y = x.to(tl.float32) * scale + lo
-        tl.store(out_ptr + row.to(tl.int64) * row_elems + offs, y, mask=mask)
+        tl.store(out_ptr + row.to(tl.int64) * band_elems + offs, y,
+                 mask=mask)
 
     _KERNEL = (triton, gather_u8_normalize_kernel)
     return _KERNEL
 
 
 def gather_u8_normalize(ds: torch.Tensor, idx: torch.Tensor,
-                        lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+                        lo: float = 0.0, hi: float = 1.0,
+                        rows: tuple | None = None) -> torch.Tensor:
     """``ds[idx]`` normalized from uint8 to float32 ``[lo, hi]``.
 
     ``ds``: contiguous uint8 (N, H, W, C); ``idx``: (R,) int32/int64 row
     indices, each in ``[0, N)`` (the caller's contract: the kernel does not
-    bounds-check them). Returns (R, C, H, W) float32 in channels_last
-    memory; split it into batches with ``torch.split`` (views, no copy).
+    bounds-check them); ``rows``: the band ``(h0, h1)`` of image rows to
+    read, default the whole height. Returns (R, C, h1-h0, W) float32 in
+    channels_last memory; split it into batches with ``torch.split``
+    (views, no copy).
     """
     _check(ds, idx)
     if ds.device.type == "cpu":
-        return gather_u8_normalize_ref(ds, idx, lo, hi)
+        return gather_u8_normalize_ref(ds, idx, lo, hi, rows)
     if ds.device.type != "cuda":
         raise ValueError(f"gather_u8_normalize: unsupported device {ds.device}")
     if not ds.is_contiguous():
         raise ValueError("gather_u8_normalize: ds must be contiguous")
+    h0, h1 = _band(ds, rows)
     triton, kernel = _kernel()
     n, h, w, c = ds.shape
-    rows = idx.numel()
-    row_elems = h * w * c
-    out = torch.empty((rows, h, w, c), dtype=torch.float32, device=ds.device)
-    if rows:
-        block = min(4096, triton.next_power_of_2(row_elems))
-        grid = (rows, triton.cdiv(row_elems, block))
+    count = idx.numel()
+    band_elems = (h1 - h0) * w * c
+    out = torch.empty((count, h1 - h0, w, c), dtype=torch.float32,
+                      device=ds.device)
+    if count:
+        block = min(4096, triton.next_power_of_2(band_elems))
+        grid = (count, triton.cdiv(band_elems, block))
         # fp fusion off: mul then add, rounded like the plain version
-        kernel[grid](ds, idx.contiguous(), out, row_elems, (hi - lo) / 255.0,
-                     float(lo), BLOCK=block, num_warps=8 if block >= 2048 else 4,
+        kernel[grid](ds, idx.contiguous(), out, h * w * c, h0 * w * c,
+                     band_elems, (hi - lo) / 255.0, float(lo), BLOCK=block,
+                     num_warps=8 if block >= 2048 else 4,
                      enable_fp_fusion=False)
         LAUNCHES["gather_u8_normalize"] += 1
     return out.permute(0, 3, 1, 2)

@@ -49,7 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hemx_torch.ops.initializers import xavier_uniform
-from hemx_torch.parallel import dp
+from hemx_torch.parallel import dp, sp, tp
 
 CL = torch.channels_last
 
@@ -73,9 +73,10 @@ def same_padding(in_dim: int, k: int, s: int) -> tuple[int, int]:
 
 def cast_in(x: torch.Tensor, w: torch.Tensor, dtype: Optional[torch.dtype]):
     """``hemx.ops.layers._cast_in``: under a compute dtype both operands go
-    to it; otherwise ``x`` follows ``w``'s dtype."""
+    to it; otherwise ``x`` follows ``w``'s dtype. A cast of a sliced
+    kernel stays marked sliced (``tp.mark``)."""
     if dtype is not None:
-        return x.to(dtype), w.to(dtype)
+        return x.to(dtype), tp.mark(w.to(dtype), w)
     if x.dtype != w.dtype:
         return x.to(w.dtype), w
     return x, w
@@ -84,7 +85,17 @@ def cast_in(x: torch.Tensor, w: torch.Tensor, dtype: Optional[torch.dtype]):
 def conv2d_op(x: torch.Tensor, w: torch.Tensor, stride: int,
               padding: str = "SAME") -> torch.Tensor:
     """SAME or VALID conv of NCHW ``x`` with OIHW ``w``
-    (``hemx.ops.layers.conv2d_op``)."""
+    (``hemx.ops.layers.conv2d_op``). A kernel sliced over the model axis
+    runs column-parallel, a band of a spatial axis with its halo rows
+    (``hemx_torch.parallel.tp``, ``sp``)."""
+    if tp.active() and tp.sharded(w):
+        return tp.gather(_conv2d(tp.copy(x), w, stride, padding), 1)
+    if sp.banded():
+        return sp.conv2d(x, w, stride, padding)
+    return _conv2d(x, w, stride, padding)
+
+
+def _conv2d(x, w, stride, padding):
     if padding == "SAME":
         kh, kw = w.shape[2:]
         ph = same_padding(x.shape[2], kh, stride)
@@ -96,17 +107,11 @@ def conv2d_op(x: torch.Tensor, w: torch.Tensor, stride: int,
     return F.conv2d(x, w, stride=stride)
 
 
-def deconv2d_op(x: torch.Tensor, w: torch.Tensor, out_hw: tuple[int, int],
-                stride: int, padding: str = "SAME") -> torch.Tensor:
-    """Transposed conv matching ``tf.nn.conv2d_transpose`` with SAME or
-    VALID padding (``hemx.ops.layers.deconv2d_op``); ``w`` is torch's
-    (in, out, kh, kw). ``out_hw`` must lie in TF's legal range for the
-    padding: SAME ``(in-1)*s+1 .. in*s``, VALID ``(in-1)*s+k .. in*s+k-1``.
-    A size beyond the full transpose (a VALID 5 -> 14 at k5 s2, whose
-    transpose is 13) gets zero rows and columns at the bottom and right, as
-    hemx pads them before the bias: ``output_padding`` adds them."""
+def deconv_check(h: int, wd: int, w: torch.Tensor, out_hw: tuple[int, int],
+                 stride: int, padding: str) -> None:
+    """Refuse an ``out_hw`` outside TF's legal range for the padding (see
+    :func:`deconv2d_op`)."""
     kh, kw = w.shape[2:]
-    h, wd = x.shape[2:]
     oh, ow = out_hw
     for axis, i_dim, o_dim, k_dim in (("H", h, oh, kh), ("W", wd, ow, kw)):
         if padding == "SAME":
@@ -120,6 +125,32 @@ def deconv2d_op(x: torch.Tensor, w: torch.Tensor, out_hw: tuple[int, int],
                 f"deconv2d_op: output {axis}={o_dim} is not a valid {padding} "
                 f"conv2d_transpose size for input {i_dim}, kernel {k_dim}, "
                 f"stride {stride} (legal: {lo}..{hi})")
+
+
+def deconv2d_op(x: torch.Tensor, w: torch.Tensor, out_hw: tuple[int, int],
+                stride: int, padding: str = "SAME") -> torch.Tensor:
+    """Transposed conv matching ``tf.nn.conv2d_transpose`` with SAME or
+    VALID padding (``hemx.ops.layers.deconv2d_op``); ``w`` is torch's
+    (in, out, kh, kw). ``out_hw`` must lie in TF's legal range for the
+    padding: SAME ``(in-1)*s+1 .. in*s``, VALID ``(in-1)*s+k .. in*s+k-1``.
+    A size beyond the full transpose (a VALID 5 -> 14 at k5 s2, whose
+    transpose is 13) gets zero rows and columns at the bottom and right, as
+    hemx pads them before the bias: ``output_padding`` adds them. A kernel
+    sliced over the model axis (its input channels) runs row-parallel, a
+    band of a spatial axis with its halo rows."""
+    if tp.active() and tp.sharded(w):
+        return tp.reduce(_deconv2d(tp.scatter(x, 1), w, out_hw, stride,
+                                   padding))
+    if sp.banded():
+        return sp.deconv2d(x, w, out_hw, stride, padding)
+    return _deconv2d(x, w, out_hw, stride, padding)
+
+
+def _deconv2d(x, w, out_hw, stride, padding):
+    kh, kw = w.shape[2:]
+    h, wd = x.shape[2:]
+    oh, ow = out_hw
+    deconv_check(h, wd, w, out_hw, stride, padding)
     pad_h = (h - 1) * stride + kh - oh
     pad_w = (wd - 1) * stride + kw - ow
     extra = (max(-pad_h, 0), max(-pad_w, 0))
@@ -127,6 +158,14 @@ def deconv2d_op(x: torch.Tensor, w: torch.Tensor, out_hw: tuple[int, int],
     y = F.conv_transpose2d(x, w, stride=stride, padding=(lo_h, lo_w),
                            output_padding=extra)
     return y[:, :, :oh, :ow]
+
+
+def linear_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` (``w`` torch's (out, in)); column-parallel when ``w`` is
+    sliced over the model axis."""
+    if tp.active() and tp.sharded(w):
+        return tp.gather(F.linear(tp.copy(x), w), 1)
+    return F.linear(x, w)
 
 
 def commit_moving_stats(net: nn.Module, stats: dict) -> None:
@@ -142,7 +181,8 @@ class BatchNorm(nn.Module):
     """Batch norm over every axis but channels: (B, F) -> axis 0, NCHW ->
     (0, 2, 3). TF contrib defaults (decay 0.999, eps 1e-3, center only).
     In a process group the statistics (and so the moving ones) are the
-    global batch's, reduced differentiably over the ranks."""
+    global batch's, reduced differentiably over the ranks holding distinct
+    rows or bands (``dp.batch_group``)."""
 
     DECAY = 0.999
     EPS = 1e-3
@@ -161,7 +201,7 @@ class BatchNorm(nn.Module):
             # them: the mean, then the mean of the centred squares, each
             # summed in float32 and rounded once to x's dtype, as x.mean
             # and x.var round
-            n = x.numel() // x.shape[1] * dp.world_size()
+            n = x.numel() // x.shape[1] * dp.batch_group()[1]
             f32 = torch.float32
             mean = (dp.global_sum(x.sum(dims, dtype=f32)) / n).to(x.dtype)
             centred = x - mean.view(shape)
@@ -215,7 +255,7 @@ class Dense(_Layer):
         self.activation = activation
 
     def forward(self, x):
-        y = F.linear(*cast_in(x, self.w, self.compute_dtype))
+        y = linear_op(*cast_in(x, self.w, self.compute_dtype))
         return self._post(y, (1, -1))
 
 
@@ -261,7 +301,7 @@ class Deconv2d(_Layer):
         self.activation = activation
 
     def forward(self, x):
-        out_hw = (x.shape[2] * self.stride, x.shape[3] * self.stride)
+        out_hw = (sp.height(x) * self.stride, x.shape[3] * self.stride)
         x, w = cast_in(x, self.w, self.compute_dtype)
         y = deconv2d_op(x, w, out_hw, self.stride)
         return self._post(y, (1, -1, 1, 1))
@@ -269,9 +309,13 @@ class Deconv2d(_Layer):
 
 class Flatten(nn.Module):
     """(B, C, H, W) -> (B, H*W*C) in NHWC order, like ``hemx``'s flatten of
-    an NHWC tensor (the dense weights that follow depend on the order)."""
+    an NHWC tensor (the dense weights that follow depend on the order).
+    Bands of a spatial axis are gathered to whole height first."""
 
     def forward(self, x):
+        if sp.banded():
+            x = sp.gather(x)
+            sp.leave()
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1), {}
 
 

@@ -79,7 +79,7 @@ def write_moments(directory: str, mean_img: np.ndarray,
 def run(argv=None) -> dict:
     """Build as the CLI does, write the moments, train. The result holds
     the CLI's keys plus "moments_s" (host seconds of the moments)."""
-    args, device, model, splits = cli.build(argv)
+    args, device, model, splits = cli.build(argv, axes=False)
     if dp.is_primary():
         init_working_dir(args)
     term.message("Computing dataset depth statistics...")
@@ -97,7 +97,7 @@ def run(argv=None) -> dict:
 
 
 def main(argv=None) -> int:
-    return cli.main(argv, run=run)
+    return cli.main(argv, run=run, axes=False)
 
 
 if __name__ == "__main__":

@@ -1,24 +1,27 @@
-"""The process group behind ``--n_devices`` (counterpart of
-``hemx.parallel.mesh``, its ``data`` axis only).
+"""The process group behind ``--n_devices``, ``--model_parallel`` and
+``--spatial_parallel`` (counterpart of ``hemx.parallel.mesh``).
 
-hemx shards the global batch over a ``data`` mesh axis and lets XLA place
-the collectives. Here each device is one process: rank ``r`` of a world of
-``W`` holds rows ``[r*B : (r+1)*B]`` of every global batch of ``W*B`` rows
-(``--batch_size`` is per device, as in hemx), and ``hemx_torch.parallel.dp``
-supplies the collectives and the group's size (hemx's ``data_axis_size()``
-is ``dp.world_size()``). The group is NCCL on CUDA and gloo on the CPU
-(gloo on CUDA tensors too, when several ranks share one card).
+hemx lays its devices out as a mesh and lets XLA place the collectives.
+Here each device is one process. Without a second axis, rank ``r`` of a
+world of ``W`` holds rows ``[r*B : (r+1)*B]`` of every global batch of
+``W*B`` rows (``--batch_size`` is per device, as in hemx). With
+``--model_parallel M`` or ``--spatial_parallel S`` (at most one; ``K`` its
+size) the world is hemx's grid ``[data, K]``: rank ``r`` holds rows of
+data index ``r // K`` and slice or band ``r % K``, and the global batch is
+``batch_size * W / K`` (hemx's ``batch_size * data_axis_size``).
+``hemx_torch.parallel.dp`` keeps the sub-groups and the global-batch
+collectives, ``tp`` and ``sp`` the two axes' layers. The group is NCCL on
+CUDA and gloo on the CPU (gloo on CUDA tensors too, when several ranks
+share one card).
 
-* :func:`worker_count` resolves ``--n_devices`` (0 = every local device)
-  and refuses what hemx's ``make_mesh`` refuses, in its words;
+* :func:`check_axes` and :func:`worker_count` refuse what hemx's
+  ``make_mesh`` refuses, in its words; :func:`make_axes` makes the grid's
+  sub-groups once the group exists;
 * :func:`initialize_distributed` joins a group: a ``tcp://`` address, or
   ``env://`` under ``torchrun``;
 * :func:`spawn` starts ``n`` local workers, one per device, each in the
   group, and fails when any of them fails (a group timeout keeps a rank
   from waiting forever on one that hangs).
-
-``--model_parallel`` and ``--spatial_parallel`` (hemx's ``model`` and
-``spatial`` axes) are not ported: above 1 they are refused.
 """
 
 from __future__ import annotations
@@ -37,16 +40,15 @@ from hemx_torch.parallel import dp
 #: seconds a rank waits in a collective before the group gives up on it
 TIMEOUT_S = 1800
 
-_UNPORTED_AXES = ("is not ported to hemx_torch (ROADMAP, queue 1: the "
-                  "model and spatial axes)")
-
 # the device of this process's rank, set when it joins a group
 _device: Optional[torch.device] = None
 
 
-def check_axes(model: int = 1, spatial: int = 1) -> None:
-    """Refuse the axes hemx's ``make_mesh`` refuses, and the ones the port
-    does not have."""
+def check_axes(model: int = 1, spatial: int = 1,
+               n_devices: Optional[int] = None) -> None:
+    """Refuse what hemx's ``make_mesh`` refuses, in its words: both axes
+    at once, and an axis that does not divide the ``n_devices`` the run
+    has."""
     model, spatial = max(int(model), 1), max(int(spatial), 1)
     if model > 1 and spatial > 1:
         raise ValueError(
@@ -55,10 +57,24 @@ def check_axes(model: int = 1, spatial: int = 1) -> None:
             "when channel- and height-sharding compose in one backward "
             "pass (see make_mesh docstring). Use one axis with data "
             "parallelism instead.")
-    for flag, n in (("--model_parallel", model),
-                    ("--spatial_parallel", spatial)):
-        if n > 1:
-            raise ValueError(f"{flag} {n}: {_UNPORTED_AXES}")
+    if n_devices is not None and model * spatial > 1 \
+            and n_devices % (model * spatial):
+        asked = " x ".join(f"--{n} {v}" for n, v in
+                           (("spatial_parallel", spatial),
+                            ("model_parallel", model)) if v > 1)
+        raise ValueError(f"{asked} does not divide {n_devices} device(s)")
+
+
+def make_axes(model: int = 1, spatial: int = 1) -> None:
+    """hemx's grid over the group this process joined
+    (``dp.set_axis``); data parallelism alone when both are 1."""
+    check_axes(model, spatial, dist.get_world_size())
+    if model > 1:
+        dp.set_axis("model", model)
+    elif spatial > 1:
+        dp.set_axis("spatial", spatial)
+    else:
+        dp.set_axis(None)
 
 
 def local_device_count(device: str) -> int:
@@ -130,6 +146,7 @@ def initialize_distributed(coordinator: Optional[str] = None,
 
 def shutdown() -> None:
     global _device
+    dp.set_axis(None)
     if dist.is_initialized():
         dist.destroy_process_group()
     _device = None

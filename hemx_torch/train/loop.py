@@ -32,12 +32,18 @@ crop), placed on the device.
 
 Data parallel (``--n_devices``, a process group of W ranks): the global
 batch is ``batch_size * W``, as in hemx; it sets the batches per epoch and
-images/s, and each rank trains on its rows of it. The reported losses
-(history, summaries, validation and test) are their mean over the ranks
-(``hemx_torch.parallel.dp.reduce_metrics``), the same on every rank. Only
-rank 0 writes options, checkpoints, summaries and console lines; its
-summaries see the whole global summary batch, computed on rank 0 alone
-(``dp.local``). Every rank restores the same checkpoint on resume.
+images/s, and each rank trains on its rows of it. Under
+``--model_parallel`` or ``--spatial_parallel`` K the global batch is
+``batch_size * W / K`` (hemx's ``batch_size * data_axis_size``): the K
+ranks of a data index share its rows (their slices of the kernels, or
+their height bands of the images, which the feeders deliver alone). The
+reported losses (history, summaries, validation and test) are their mean
+over the ranks (``hemx_torch.parallel.dp.reduce_metrics``), the same on
+every rank. Only rank 0 writes options, checkpoints, summaries and console
+lines; its summaries see the whole global summary batch, computed on rank
+0 alone (``dp.local``), with every kernel whole
+(``hemx_torch.parallel.tp.full_weights``). Every rank restores the same
+checkpoint on resume.
 
 Each call's losses and wall time are recorded; the time is taken on the
 host clock around the train call and a device synchronize, so it covers the
@@ -59,7 +65,7 @@ from hemx_torch.config import init_working_dir
 from hemx_torch.data.pipeline import DeviceDataPipeline, Pipeline, place_batch
 from hemx_torch.models import common
 from hemx_torch.ops.input_kernels import LAUNCHES
-from hemx_torch.parallel import dp
+from hemx_torch.parallel import dp, tp
 from hemx_torch.summaries.events import SummaryWriterSet
 from hemx_torch.train.checkpoint import CheckpointManager
 from hemx_torch.utils import terminal as term
@@ -79,24 +85,46 @@ def _continuous_stream(pipeline, start_epoch: int = 0):
 
 
 def global_batch(args) -> int:
-    """``--batch_size`` rows per rank, times the ranks."""
-    return args.batch_size * dp.world_size()
+    """``--batch_size`` rows per data index, times the data indices."""
+    return args.batch_size * dp.data_axis_size()
 
 
-def _cached(split, args, device, keys, *, shuffle: bool, seed: int,
+def check_spatial(model, split, args) -> None:
+    """hemx's refusal of an input height ``--spatial_parallel`` does not
+    divide (``hemx/train/loop.py:115-123``), for a model that runs on
+    bands."""
+    s = dp.spatial_axis_size()
+    if s == 1 or not model.band_input:
+        return
+    host = next(split.iter_epoch(global_batch(args), shuffle=False))
+    for k, v in host.items():
+        if model.batch_keys and k not in model.batch_keys:
+            continue
+        shp = v.shape
+        if len(shp) >= 3 and (shp[1] < s or shp[1] % s):
+            raise ValueError(
+                f"--spatial_parallel {s} does not divide the height "
+                f"{shp[1]} of input '{k}' {tuple(shp[1:])}; the input "
+                f"would silently shard data-parallel only, wasting the "
+                f"spatial axis. Pick a dividing height or drop "
+                f"--spatial_parallel.")
+
+
+def _cached(split, args, device, model, *, shuffle: bool, seed: int,
             group: int = 1):
     """The split's DeviceDataPipeline, or None when it must stream."""
     if not args.device_data_cache:
         return None
     return DeviceDataPipeline.maybe(
-        split, global_batch(args), device=device, keys=keys, shuffle=shuffle,
-        seed=seed, budget_mb=args.device_cache_mb, group=group)
+        split, global_batch(args), device=device, keys=model.batch_keys,
+        shuffle=shuffle, seed=seed, budget_mb=args.device_cache_mb,
+        group=group, bands=model.band_input)
 
 
-def _pipeline(split, args, device, keys, *, group: int):
+def _pipeline(split, args, device, model, *, group: int):
     """The train feeder: the device cache, or the streaming Pipeline with
     one group of ``group`` batches (one train call's) per transfer."""
-    pipeline = _cached(split, args, device, keys, shuffle=args.shuffle,
+    pipeline = _cached(split, args, device, model, shuffle=args.shuffle,
                        seed=args.seed, group=group)
     if pipeline is not None:
         term.message("Input: device-resident dataset cache (batches "
@@ -104,8 +132,9 @@ def _pipeline(split, args, device, keys, *, group: int):
         return pipeline
     term.message(f"Input: streaming pipeline ({group} batch(es) per H2D "
                  f"copy)")
-    return Pipeline(split, global_batch(args), device=device, keys=keys,
-                    shuffle=args.shuffle, seed=args.seed, group=group)
+    return Pipeline(split, global_batch(args), device=device,
+                    keys=model.batch_keys, shuffle=args.shuffle,
+                    seed=args.seed, group=group, bands=model.band_input)
 
 
 def _sync(device: torch.device) -> None:
@@ -120,19 +149,23 @@ def train(model, splits, args, device) -> dict:
     checkpoint's path, epoch and step), "timings" (seconds of each
     checkpoint save, restore and summary write, checkpoint bytes, and the
     train split's materialization seconds, None for a source that was in
-    memory), "input_kernel_launches" and "grad_all_reduce" (this run's
-    launches of the input kernel, and the collectives and bytes of its
-    gradient all-reduces)}."""
+    memory), "input_kernel_launches", "grad_all_reduce" and
+    "axis_collectives" (this run's launches of the input kernel, the
+    collectives and bytes of its gradient all-reduces, and those of the
+    model or spatial axis's layers and checkpoint and summary gathers;
+    "call_axis_collectives" those of the train calls alone)}."""
     device = torch.device(device)
     launches, reductions = dict(LAUNCHES), dict(dp.GRAD_REDUCTIONS)
+    axis = dict(tp.COLLECTIVES)
     split = splits["train"]
+    check_spatial(model, split, args)
     batches = split.batches_per_epoch(global_batch(args))
     if args.epoch_size > 0:
         batches = min(batches, args.epoch_size)
     if batches == 0:
         raise ValueError(f"dataset ({split.count}) smaller than one global "
                          f"batch ({global_batch(args)})")
-    pipeline = _pipeline(split, args, device, model.batch_keys,
+    pipeline = _pipeline(split, args, device, model,
                          group=model.batches_per_train_call())
     if dp.is_primary():
         init_working_dir(args)
@@ -148,6 +181,8 @@ def train(model, splits, args, device) -> dict:
                                        for k, v in LAUNCHES.items()}
     result["grad_all_reduce"] = {k: v - reductions[k]
                                  for k, v in dp.GRAD_REDUCTIONS.items()}
+    result["axis_collectives"] = {k: v - axis[k]
+                                  for k, v in tp.COLLECTIVES.items()}
     return result
 
 
@@ -188,9 +223,10 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
 
     def write_train_summary(step: int, metrics: dict | None = None,
                             end_of_epoch: bool = False) -> None:
-        if primary:
-            with dp.local():
-                _write_train_summary(step, metrics, end_of_epoch)
+        with tp.full_weights(ts.nets):
+            if primary:
+                with dp.local():
+                    _write_train_summary(step, metrics, end_of_epoch)
 
     def _write_train_summary(step: int, metrics: dict | None,
                              end_of_epoch: bool) -> None:
@@ -223,6 +259,7 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
 
     prof = None
     history = []
+    call_axis = {k: 0 for k in tp.COLLECTIVES}  # the train calls' own
     term.message("Starting training...")
     for epoch in range(current_epoch, max_epochs):
         iterator = range(batches)
@@ -244,9 +281,12 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
                     and i == prof_start):
                 prof = _start_profile(device)
             t0 = time.perf_counter()
+            before = dict(tp.COLLECTIVES)
             ts, metrics = model.train(ts, stream)
             _sync(device)
             seconds = time.perf_counter() - t0
+            for k, v in tp.COLLECTIVES.items():
+                call_axis[k] += v - before[k]
             if prof is not None and i == prof_stop:
                 _stop_profile(prof, args.dir)
                 prof = None
@@ -276,7 +316,8 @@ def _train(model, splits, args, device, pipeline, batches, ckpt, writers):
             inference(model, ts, splits["test"], args, device,
                       writers["test"], ts.step, label="Test")
     return {"train_state": ts, "epoch": max_epochs, "history": history,
-            "pipeline": pipeline, "resumed": resumed, "timings": timings}
+            "pipeline": pipeline, "resumed": resumed, "timings": timings,
+            "call_axis_collectives": call_axis}
 
 
 def _start_profile(device: torch.device):
@@ -301,13 +342,12 @@ def inference(model, ts, split, args, device, writer, step: int, *,
     summary. The batches come from the device cache when the split
     qualifies, else host batch by host batch (in a process group, this
     rank's rows of each global batch; the losses are the ranks' mean)."""
-    feeder = _cached(split, args, device, model.batch_keys, shuffle=False,
-                     seed=0)
+    feeder = _cached(split, args, device, model, shuffle=False, seed=0)
     if feeder is not None:
         batches = feeder.epoch(0)
     else:
-        batches = (place_batch(dp.host_slice(b), split, device,
-                               model.batch_keys)
+        batches = (place_batch(dp.host_slice(b, bands=model.band_input),
+                               split, device, model.batch_keys)
                    for b in split.iter_epoch(global_batch(args),
                                              shuffle=False))
     avg, running = MovingAverage(), {}
@@ -328,7 +368,8 @@ def summarize(result: dict, batch_size: int, device) -> dict:
     ``bench.py`` defines it, ``batch_size`` the global batch. It counts the
     input kernel's launches of this run (none on the CPU, where its plain
     version runs), and in a process group the gradient all-reduces this
-    rank ran in it and their bytes."""
+    rank ran in it and their bytes, and under a model or spatial axis the
+    collectives and bytes of its layers."""
     secs = [r["seconds"] for r in result["history"]]
     out = {"device": str(device), "step": result["train_state"].step,
            "epoch": result["epoch"], "calls": len(secs),
@@ -336,6 +377,13 @@ def summarize(result: dict, batch_size: int, device) -> dict:
            "input_kernel_launches": result["input_kernel_launches"]}
     if dp.active():
         out["grad_all_reduce"] = result["grad_all_reduce"]
+    if dp.axis_kind():
+        calls = max(len(result["history"]), 1)
+        out["axis"] = {"kind": dp.axis_kind(), "size": dp.axis_size(),
+                       "data": dp.data_axis_size(),
+                       **result["axis_collectives"],
+                       **{f"{k}_per_call": v / calls for k, v in
+                          result["call_axis_collectives"].items()}}
     if secs:
         steady = secs[1:] if len(secs) > 1 else secs
         out.update(first_call_s=secs[0],

@@ -303,9 +303,10 @@ def test_n_devices_configs_resolve_to_hemx_global_batch(config, tmp_path,
 
 
 def test_mesh_refusals_use_hemx_texts():
-    """More GPUs than the host has, and hemx's ``model`` and ``spatial``
-    axes: refused in hemx's words (the axes, which the port does not have,
-    naming their ROADMAP item), as errors, not warnings."""
+    """More GPUs than the host has, and what hemx's ``make_mesh`` refuses
+    of its ``model`` and ``spatial`` axes: both at once, and an axis that
+    does not divide the devices (one device on the CPU without
+    ``--n_devices``), refused in hemx's words, as errors, not warnings."""
     import re as _re
 
     from hemx.parallel.mesh import make_mesh
@@ -326,10 +327,16 @@ def test_mesh_refusals_use_hemx_texts():
         cli.workers(parse_args(base + ["--model_parallel", "2",
                                        "--spatial_parallel", "2"]))
     assert str(e.value) == str(hemx_both.value)
-    for flag in ("--model_parallel", "--spatial_parallel"):
-        with pytest.raises(cli.CliError, match=(
-                f"^{flag} 2: .*ROADMAP, queue 1: the model and spatial "
-                f"axes")):
+    for flag, axis in (("--model_parallel", "model"),
+                       ("--spatial_parallel", "spatial")):
+        with pytest.raises(ValueError) as hemx_three:
+            make_mesh(3, **{axis: 2})
+        with pytest.raises(cli.CliError) as e:
+            cli.workers(parse_args(base + [flag, "2", "--n_devices", "3",
+                                           "--device", "cpu"]))
+        assert str(e.value) == str(hemx_three.value)
+        with pytest.raises(cli.CliError,
+                           match=f"^{flag} 2 does not divide 1 device"):
             cli.workers(parse_args(base + [flag, "2", "--device", "cpu"]))
     assert cli.main(base + ["--model_parallel", "4", "--device", "cpu"]) == 1
     # one process asked to run two without a group to join

@@ -89,21 +89,26 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("band", [False, True])
 @pytest.mark.parametrize("shape,rows", [((64, 64, 3), 3072), ((5, 7, 3), 37)])
 @pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-1.0, 1.0)])
-def test_kernel_matches_plain_on_cuda(cuda_device, shape, rows, lo, hi):
+def test_kernel_matches_plain_on_cuda(cuda_device, shape, rows, lo, hi, band):
     """The Triton kernel equals its plain version on the card (max abs
-    diff 1e-6) and counts one launch."""
+    diff 1e-6) and counts one launch, on whole rows and on a height band
+    (the lower rows of each image, as a ``--spatial_parallel`` rank reads
+    them)."""
     g = torch.Generator(device=cuda_device)
     g.manual_seed(0)
     ds = torch.randint(0, 256, (rows + 5,) + shape, dtype=torch.uint8,
                        device=cuda_device, generator=g)
     idx = torch.randint(0, rows + 5, (rows,), device=cuda_device, generator=g)
+    rows_of = (shape[0] // 2, shape[0]) if band else None
     before = K.LAUNCHES["gather_u8_normalize"]
-    got = K.gather_u8_normalize(ds, idx, lo, hi)
+    got = K.gather_u8_normalize(ds, idx, lo, hi, rows_of)
     torch.cuda.synchronize()
     assert K.LAUNCHES["gather_u8_normalize"] == before + 1
-    want = K.gather_u8_normalize_ref(ds, idx, lo, hi)
+    want = K.gather_u8_normalize_ref(ds, idx, lo, hi, rows_of)
+    assert got.shape == want.shape
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert (got - want).abs().max().item() <= 1e-6
 
