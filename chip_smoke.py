@@ -212,6 +212,20 @@ prints its last line):
    of 256x256x3, each in two bands) bit-equal to its plain version and to
    the whole gather's rows, device time with the L2 cache flushed,
    against its bytes bound.
+20. The native reader (``hemx_torch.native``, host C++ beside the card):
+   built into a fresh directory (seconds, ``g++ --version``), 64 MiB of
+   12,288-byte records written by ``write_records`` and by
+   ``TFRecordWriter``, byte-equal; the C++ reader (with and without
+   ``verify``) and counter equal the plain walks; a flipped payload byte
+   raises under ``verify``; a cut inside the last record's header CRC,
+   payload or data CRC raises "truncated" in the C++ reader, the C++
+   counter and the plain iterator, a cut inside the length field is a
+   clean end in all three; seconds per MiB of the CRC, the writes and the
+   reads, C++ and plain, on their own JSON line before the kernels line.
+   Phase 1 builds the module into ``hemx_torch/_build/native`` first, so
+   no build falls into a timed region; phases 9 and 16 check that their
+   conversions ran through that build, and phase 6 prints the CRC's
+   seconds per MiB both ways.
 
 Phase 2 also times the kernel, by CUDA events and by the device time
 torch.profiler records with the 50 MB L2 cache flushed before each
@@ -222,14 +236,15 @@ and 65x65x1, 12,675 and 4,225 bytes, not 16-byte aligned; of 66x66x3 and
 66x66x1, 13,068 and 4,356 bytes; of 64x64x3 and 64x64x1) and phase 15's
 (128 of 256x256x3 and 256x256x1, one pix2pix bs64 call's two batches).
 
-The line before the last is a JSON list of the kernels with their launch
-counts summed over phases 4, 6, 8, 9, 11, 13, 15-19 (each path's
+Phase 20's figures are a JSON line of their own (``native_io``) before
+the kernels line. The kernels line is a JSON list of the kernels with
+their launch counts summed over phases 4, 6, 8, 9, 11, 13, 15-19 (each path's
 counts set to 0 just before it and read just after, phase 17's by each
 worker process and the torchrun run's summary line; by phase under
 ``launches_by_phase``), their phase-2 errors and times (the short gathers
 under ``cold_rows``, the band rows of phase 19 (d), run in phase 2, under
-``band_rows``), and their bound; the last line is ``{"ok": true,
-"device": {...}}``.
+``band_rows``), and their bound; then the phases' seconds, and the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -308,6 +323,12 @@ def phase_card(torch) -> str:
     import triton
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, cuDNN "
           f"{torch.backends.cudnn.version()}, Triton {triton.__version__}",
+          flush=True)
+    from hemx_torch import native
+    t0 = time.perf_counter()
+    mod = native.load()
+    print(f"hemx_torch.native: {mod.__file__} loaded in "
+          f"{time.perf_counter() - t0:.2f} s (built at first use)",
           flush=True)
     return out
 
@@ -885,7 +906,7 @@ def phase_bf16_run(torch, dev, card: str, workdir: str, run, *,
                    count: int = 4096,
                    eval_count: int = 1024, image: int = 64, batch: int = 512,
                    latent: int = 200, calls: int = 6) -> int:
-    from hemx_torch.summaries.crc32c import masked_crc32c
+    from hemx_torch.summaries import crc32c as C
 
     argv = full_width_argv(dev, workdir, count=count, eval_count=eval_count,
                            image=image, batch=batch, latent=latent)
@@ -893,9 +914,14 @@ def phase_bf16_run(torch, dev, card: str, workdir: str, run, *,
                          eval_count, batch, run=run)
     t, t2 = out["res1"]["timings"], out["res2"]["timings"]
     crc_data = bytes(range(256)) * 4096  # 1 MiB
-    t0 = time.perf_counter()
-    masked_crc32c(crc_data)
-    crc_s = time.perf_counter() - t0
+    crc_s, crcs = {}, {}
+    for name, fn in (("native", C.crc32c), ("plain", C._py_crc32c)):
+        t0 = time.perf_counter()
+        crcs[name] = fn(crc_data)
+        crc_s[name] = time.perf_counter() - t0
+    check(crcs["native"] == crcs["plain"],
+          f"crc32c of 1 MiB: native {crcs['native']:#x}, plain "
+          f"{crcs['plain']:#x}")
     secs, med = out["secs"], out["median_s"]
     print(f"IWGAN bf16 bs{batch} {image}x{image}x3 latent {latent}, 5+1, Adam, "
           f"2 runs of {calls} calls on {card}: first calls "
@@ -907,8 +933,10 @@ def phase_bf16_run(torch, dev, card: str, workdir: str, run, *,
           f"{[round(x, 4) for x in t['save_s'] + t2['save_s']]}; restore s "
           f"{[round(x, 4) for x in t2['restore_s']]}; summary write s median "
           f"{statistics.median(t['summary_s'] + t2['summary_s']):.4f} "
-          f"(n={len(t['summary_s'] + t2['summary_s'])}); pure-Python "
-          f"crc32c {crc_s:.4f} s per MiB", flush=True)
+          f"(n={len(t['summary_s'] + t2['summary_s'])}); crc32c of 1 MiB "
+          f"{crc_s['native']:.6f} s native (C++), {crc_s['plain']:.4f} s "
+          f"plain (Python), {crc_s['plain'] / crc_s['native']:.0f}x",
+          flush=True)
     return out["launches"], med
 
 
@@ -1102,6 +1130,15 @@ def stream_groups(per_epoch: int, group: int, consumed: int) -> list:
     return sizes
 
 
+def check_native_build() -> None:
+    """The records' CRCs and reads went through the build of phase 1."""
+    from hemx_torch import native
+    path = native.load().__file__
+    check(os.path.dirname(path) == native.BUILD_DIR,
+          f"hemx_torch.native loaded from {path}, not from "
+          f"{native.BUILD_DIR}")
+
+
 def phase_data(torch, dev, card: str, workdir: str, *, size: int = 128,
                counts=(4096, 512, 512), batch: int = 512, calls: int = 6,
                nyu_counts=(384, 65, 63), nyu_batch: int = 64,
@@ -1128,11 +1165,13 @@ def phase_data(torch, dev, card: str, workdir: str, *, size: int = 128,
     convert_s = time.perf_counter() - t0
     record_bytes = sum(os.path.getsize(os.path.join(store, "floorplan", f))
                        for f in os.listdir(os.path.join(store, "floorplan")))
+    check_native_build()
     print(f"floorplan raw: {sum(counts)} RGB PNGs of {size}x{size} (rows "
           f"filtered y % 5), {png_total} bytes, written in {write_s:.2f} s; "
           f"converted by the plugin to {record_bytes} bytes of records in "
-          f"{convert_s:.2f} s ({sum(counts) / convert_s:.1f} images/s)",
-          flush=True)
+          f"{convert_s:.2f} s ({sum(counts) / convert_s:.1f} images/s) "
+          f"through hemx_torch.native's CRC-32C (1.97-2.29 s with the "
+          f"pure-Python CRC-32C, PERF.md)", flush=True)
 
     argv = ["--model", "iwgan", "--dataset", "floorplan", "--raw_dataset_dir",
             raw, "--dataset_dir", store, "--batch_size", str(batch),
@@ -2241,12 +2280,18 @@ def phase_celeb_coco(torch, dev, card: str, workdir: str, *,
         check(n == counts[0], f"{name}: {n} train records, expected "
                               f"{counts[0]}")
         rates[name] = (sum(counts), write_s, convert_s, n, mat_s, splits)
+        check_native_build()
+        rec_dir = os.path.join(store, name)
+        rec_bytes = sum(os.path.getsize(os.path.join(rec_dir, f))
+                        for f in os.listdir(rec_dir)
+                        if f.endswith(".tfrecords"))
         print(f"{name} raw: {sum(counts)} JPEGs written (Pillow "
-              f"{PIL.__version__}) in {write_s:.2f} s; records by the CLI's "
-              f"preparation in {convert_s:.2f} s ({sum(counts) / convert_s:.1f}"
-              f" images/s); train split materialized (decoded, resized to "
-              f"64x64) in {mat_s:.2f} s = {n / mat_s:.1f} images/s",
-              flush=True)
+              f"{PIL.__version__}) in {write_s:.2f} s; {rec_bytes} bytes of "
+              f"records by the CLI's preparation in {convert_s:.2f} s "
+              f"({sum(counts) / convert_s:.1f} images/s) through "
+              f"hemx_torch.native's CRC-32C; train split materialized "
+              f"(decoded, resized to 64x64) in {mat_s:.2f} s = "
+              f"{n / mat_s:.1f} images/s", flush=True)
     jpg = os.path.join(workdir, "celeb_raw", "img_align_celeba", "000001.jpg")
     with open(jpg, "rb") as f:
         data = f.read()
@@ -2837,6 +2882,134 @@ def phase_axes(torch, dev, card: str, workdir: str) -> dict:
     return launches
 
 
+def _median_s(fn, n: int = 3) -> float:
+    """The median host seconds of ``n`` runs of ``fn``."""
+    secs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs)
+
+
+def phase_native(card: str, workdir: str, *, mib: int = 64,
+                 record: int = 12288) -> dict:
+    """Phase 20: ``hemx_torch.native`` built into a fresh directory, its
+    records and errors against the plain walks, and seconds per MiB of
+    each path on this host (the median of 3 runs; the plain CRC over 1
+    MiB). Returns the line of figures."""
+    import numpy as np
+
+    from hemx_torch import native
+    from hemx_torch.data import tfrecord as T
+    from hemx_torch.summaries import crc32c as C
+
+    build_dir = os.path.join(workdir, "build")
+    t0 = time.perf_counter()
+    mod = native.load(build_dir=build_dir)
+    build_s = time.perf_counter() - t0
+    check(os.path.dirname(mod.__file__) == build_dir,
+          f"built {mod.__file__}, not into {build_dir}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.splitlines()[0]
+    print(f"hemx_torch.native built into a fresh directory in {build_s:.2f} "
+          f"s by {gxx}", flush=True)
+
+    n = -(-mib * 2 ** 20 // record)
+    blob = np.random.default_rng(0).integers(0, 256, n * record,
+                                             dtype=np.uint8).tobytes()
+    recs = [blob[i * record:(i + 1) * record] for i in range(n)]
+    size_mib = n * record / 2 ** 20
+    native_file = os.path.join(workdir, "native.tfrecords")
+    py_file = os.path.join(workdir, "python.tfrecords")
+
+    def write_py():
+        with T.TFRecordWriter(py_file) as w:
+            for r in recs:
+                w.write(r)
+
+    secs = {"write_native": _median_s(
+                lambda: mod.write_records(native_file, recs)),
+            "write_python": _median_s(write_py)}
+    with open(native_file, "rb") as f, open(py_file, "rb") as g:
+        check(f.read() == g.read(), "write_records and TFRecordWriter wrote "
+                                    "different bytes")
+    for verify in (False, True):
+        tag = "verified" if verify else "unverified"
+        check(mod.read_all_records(native_file, verify) == recs
+              and T.read_all_records(native_file, verify) == recs
+              and list(T.tfrecord_iterator(native_file, verify)) == recs,
+              f"{tag} reads differ from the records written")
+        secs[f"read_{tag}_native"] = _median_s(
+            lambda: mod.read_all_records(native_file, verify))
+        secs[f"read_{tag}_python"] = _median_s(
+            lambda: list(T.tfrecord_iterator(native_file, verify)))
+    check(T.count_records(native_file) == mod.count_records(native_file)
+          == T._py_count_records(native_file) == n,
+          f"counts differ from {n}")
+    per_mib = {k: v / size_mib for k, v in secs.items()}
+    crc_blob = blob[:2 ** 20]
+    per_mib["crc32c_native"] = _median_s(lambda: mod.crc32c(blob)) / size_mib
+    per_mib["crc32c_python"] = _median_s(lambda: C._py_crc32c(crc_blob))
+    check(mod.crc32c(crc_blob) == C._py_crc32c(crc_blob),
+          "crc32c: native and plain differ")
+
+    # the errors, on the first three records
+    small = os.path.join(workdir, "small.tfrecords")
+    mod.write_records(small, recs[:3])
+    with open(small, "rb") as f:
+        data = f.read()
+    last = 2 * (record + 16)
+    bad = bytearray(data)
+    bad[12 + record // 2] ^= 1
+    with open(small, "wb") as f:
+        f.write(bytes(bad))
+    for read in (lambda p: mod.read_all_records(p, True),
+                 lambda p: list(T.tfrecord_iterator(p, True))):
+        try:
+            read(small)
+        except OSError as e:
+            check("corrupt" in str(e), f"flipped byte: {e}")
+        else:
+            check(False, "a flipped payload byte passed verify")
+    paths = {"C++ reader": lambda p: mod.read_all_records(p),
+             "C++ counter": mod.count_records,
+             "plain iterator": lambda p: list(T.tfrecord_iterator(p))}
+    for where, cut in (("header CRC", last + 10),
+                       ("payload", last + 12 + record // 2),
+                       ("data CRC", last + 12 + record + 2)):
+        with open(small, "wb") as f:
+            f.write(data[:cut])
+        for name, fn in paths.items():
+            try:
+                fn(small)
+            except OSError as e:
+                check("truncated" in str(e), f"{name}, cut in the {where}: "
+                                             f"{e}")
+            else:
+                check(False, f"{name}: a cut in the last record's {where} "
+                             f"passed")
+    with open(small, "wb") as f:
+        f.write(data[:last + 5])  # inside the last record's length
+    check(mod.read_all_records(small) == recs[:2]
+          and list(T.tfrecord_iterator(small)) == recs[:2]
+          and mod.count_records(small) == 2,
+          "a cut inside the length field is not a clean end")
+    print(f"hemx_torch.native on {n} records of {record} B ({size_mib:.1f} "
+          f"MiB) on the host of {card}: write_records = TFRecordWriter "
+          f"byte for byte; C++ reads (verified or not) and counts = the "
+          f"plain walks; a flipped byte raises under verify; cuts in the "
+          f"header CRC, payload and data CRC raise truncated in the C++ "
+          f"reader, the C++ counter and the plain iterator; a cut in the "
+          f"length field is a clean end in all three", flush=True)
+    print("seconds per MiB: " + ", ".join(f"{k} {v:.6f}"
+                                          for k, v in per_mib.items()),
+          flush=True)
+    return {"card": card, "gxx": gxx, "build_s": build_s, "records": n,
+            "record_bytes": record, "mib": size_mib,
+            "s_per_mib": per_mib}
+
+
 def _tool_run(dev, d: str, model: str) -> None:
     """A tiny run on the card for phase 18 (a): 32 px, batch 8, latent 16,
     ``--precision highest``, sgd, 2 calls."""
@@ -3207,6 +3380,8 @@ def main() -> int:
         stage("phase 19: the model and spatial axes")
         launches_axes = phase_axes(torch, dev, card,
                                    os.path.join(workdir, "axes"))
+        stage("phase 20: the native reader")
+        native_io = phase_native(card, os.path.join(workdir, "native"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     by_phase = {"phase4_iwgan_f32": launches, "phase6_iwgan_bf16": launches_bf16,
@@ -3219,13 +3394,14 @@ def main() -> int:
                 **{f"phase17_{k}": v for k, v in launches_dp.items()},
                 **{f"phase18_{k}": v for k, v in launches_tools.items()},
                 **{f"phase19_{k}": v for k, v in launches_axes.items()}}
+    print(json.dumps({"native_io": native_io}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "gather_u8_normalize", "route": "triton",
         "source": "hemx_torch/ops/input_kernels.py",
         "replaces": "hemx/ops/pallas_kernels.py:75",
         "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
         **kern}]}), flush=True)
-    print(f"phase 19 took {time.perf_counter() - marks[-1]:.1f} s; the script "
+    print(f"phase 20 took {time.perf_counter() - marks[-1]:.1f} s; the script "
           f"{time.perf_counter() - marks[0]:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,17 @@
-"""TFRecord file IO without TensorFlow (counterpart of ``hemx.data.tfrecord``,
-its pure-Python path). Records are framed as
+"""TFRecord file IO without TensorFlow (counterpart of
+``hemx.data.tfrecord``). Records are framed as
 
     uint64 length | uint32 masked_crc(length) | bytes data | uint32 masked_crc(data)
 
 CRCs are written correctly; on read they are skipped by default (TF's
-default) unless ``verify=True``. ``hemx``'s optional C++ reader
-(``hemx/native/tfrecord.cc``) is not ported: reading walks the framing in
-Python, writing runs the port's pure-Python CRC-32C over every record.
+default) unless ``verify=True``. :func:`read_all_records` and
+:func:`count_records` run the C++ reader of ``hemx_torch.native`` (built
+at first use; a failed build raises), as hemx's do; :class:`TFRecordWriter`
+and :func:`tfrecord_iterator` stay in Python, the writer with the C++
+CRC-32C through ``masked_crc32c``. The plain walks stay beside them as
+:func:`tfrecord_iterator` and :func:`_py_count_records`, the versions the
+tests hold the C++ ones against. Unverified reads go to C++ as in hemx,
+though the Python walk matched them on a CPU (PERF.md).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import os
 import struct
 from typing import Iterator
 
+from hemx_torch import native
 from hemx_torch.summaries.crc32c import masked_crc32c
 
 
@@ -68,20 +74,11 @@ def tfrecord_iterator(path: str, verify: bool = False) -> Iterator[bytes]:
 
 
 def read_all_records(path: str, verify: bool = False) -> list[bytes]:
-    return list(tfrecord_iterator(path, verify))
+    return native.load().read_all_records(path, verify)
 
 
-def count_records(path: str) -> int:
-    """Record count by walking the framing; the result is cached next to
-    the file as ``<path>.count`` and reused while it is newer than the
-    file."""
-    cache = path + ".count"
-    try:
-        if os.path.getmtime(cache) >= os.path.getmtime(path):
-            with open(cache) as f:
-                return int(f.read().strip())
-    except (OSError, ValueError):
-        pass
+def _py_count_records(path: str) -> int:
+    """The records of ``path`` by walking its framing in Python."""
     n = 0
     size = os.path.getsize(path)
     with open(path, "rb") as f:
@@ -95,6 +92,21 @@ def count_records(path: str) -> int:
                 raise _truncated(path, length)
             f.seek(end)
             n += 1
+    return n
+
+
+def count_records(path: str) -> int:
+    """Record count by walking the framing in C++; the result is cached
+    next to the file as ``<path>.count`` and reused while it is newer than
+    the file."""
+    cache = path + ".count"
+    try:
+        if os.path.getmtime(cache) >= os.path.getmtime(path):
+            with open(cache) as f:
+                return int(f.read().strip())
+    except (OSError, ValueError):
+        pass
+    n = native.load().count_records(path)
     try:
         with open(cache, "w") as f:
             f.write(str(n))

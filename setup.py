@@ -29,7 +29,11 @@ setup(
     # hemx.native.load() prefers the prebuilt hemx.data._native extension
     # (above); the source is shipped too so the build-on-demand path can
     # still work where the wheel's extension is absent.
-    package_data={"hemx.native": ["tfrecord.cc"]},
+    # hemx_torch.native has no prebuilt extension: it compiles its source
+    # with g++ at first use (into hemx_torch/_build/native) and raises if
+    # it cannot, so the source ships with the package.
+    package_data={"hemx.native": ["tfrecord.cc"],
+                  "hemx_torch.native": ["tfrecord.cc"]},
     py_modules=["train", "paper_train", "experimental", "visualize",
                 "paper_metrics", "paper_fullimage", "paper_visualize",
                 "events", "visualize_gui", "bench"],

@@ -19,15 +19,31 @@ change, hemx's update-delta form.
 
 After one sgd step at lr 1e-3 a gradient error of the size of the
 gradient hides under those tolerances, so the gradients themselves are
-held too: on two gloo ranks (data 1 x spatial 2) the CNN's, the VAE's and
-the IWGAN critic's (its GP on whole rows) equal the same process's
-gradients of the whole batch, which the one-device tests hold to hemx's
-(``tests/test_torch_cnn.py``, ``test_torch_vae.py``,
-``test_torch_iwgan.py``). hemx's own spatial mesh fails that check:
-its CNN's momentum trace after one call (its gradient) is 4x one
-device's on the encoder, the latent dense and the decoder's d1, c1 and
-c2, 2x on dc1 (``scripts/hemx_spatial_trace.py``, the 8-device CPU mesh;
-its model mesh equals one device), which hemx's sgd test cannot see.
+held too: on two gloo ranks (data 1 x spatial 2) the CNN's, the VAE's,
+the IWGAN critic's (its GP on whole rows), the GAN critic's (BN
+statistics over bands), the GAN's and the IWGAN's generator losses
+(taken through G's ``Unflatten`` cut to bands, with respect to G's
+parameters) and paper_standalone's at 65 px (whole rows on every rank)
+equal the same process's gradients of the whole batch, which the
+one-device tests hold to hemx's (``tests/test_torch_cnn.py``,
+``test_torch_vae.py``, ``test_torch_iwgan.py``, ``test_torch_gan.py``,
+``test_torch_paper_standalone.py``).
+
+hemx's own spatial mesh fails that check on two models
+(``scripts/hemx_spatial_trace.py``, the 8-device CPU mesh; its model
+mesh equals one device's on all four, the VAE's encoder within 2e-4 for
+the KL term's conditioning). Its CNN's momentum trace after one
+call (its gradient) is 4x one device's on the encoder, the latent dense
+and the decoder's d1, c1 and c2, 2x on dc1. Its VAE's decoder shows the
+same fault: d1, c1 and c2 at 4.0000x, dc1 at 2.0-2.17x, dc2-dc4 at
+1.0000x (the encoder within 6.1e-3, the latent heads within 1.6e-2).
+Its GAN and IWGAN are sound under both axes: every kernel, BN beta and
+bias not followed by BN within 3.2e-6 of one device's (the biases that
+feed a BN have a zero true gradient, and show rounding noise only). So
+the ``cnn`` and ``vae`` cases of
+``test_four_ranks_match_hemx_data2_spatial2`` rest on a wrong reference
+(the VAE's on its decoder) and pass only because sgd's update hides the
+gap; the gradient check here and the one-device tests pin them.
 
 The spatial ops alone, in float64 on two gloo ranks: a conv or deconv on
 height bands equals the whole-height op (SAME with hemx's asymmetric
@@ -54,6 +70,10 @@ CONFIGS = {"cnn": (HW, SGD), "vae": (HW, SGD), "gan": (HW, SGD),
            "paper_standalone": (65, dict(model_version="mean_provided",
                                          g_lr=1e-4, g_beta1=0.5,
                                          g_beta2=0.999))}
+# (model, loss) pairs whose spatial gradients are held to one process's
+GRADIENT_CASES = [("cnn", "loss"), ("vae", "loss"), ("iwgan", "critic"),
+                  ("gan", "critic"), ("gan", "generator"),
+                  ("iwgan", "generator"), ("paper_standalone", "loss")]
 
 
 @pytest.fixture(scope="module")
@@ -113,12 +133,29 @@ def _gradients_worker():
     x = torch.from_numpy(rng.random((4, 3, HW, HW), dtype=np.float32))
     z = torch.from_numpy(rng.standard_normal((4, 16), dtype=np.float32))
     alpha = torch.from_numpy(rng.random((4, 1), dtype=np.float32))
+    depth_batch = {
+        "image": torch.from_numpy(rng.random((4, 3, 65, 65),
+                                             dtype=np.float32)),
+        "depth": torch.from_numpy(rng.random((4, 1, 65, 65),
+                                             dtype=np.float32))}
     args = SimpleNamespace(latent_size=16, n_disc_train=2, dtype="float32",
                            gp_per_sample=False, vae_parity_loss=False,
-                           optimizer="sgd", lr=1e-3)
+                           optimizer="sgd", lr=1e-3,
+                           model_version="mean_provided", g_lr=1e-4,
+                           g_beta1=0.5, g_beta2=0.999)
 
-    def grads(name):
+    def grads(name, part):
         model = get_model(name)(args, "cpu")
+        if name == "paper_standalone":
+            # 65 rows: height 2 does not divide, so every rank holds the
+            # whole rows and its loss is one term of the mean over ranks
+            ts = model.init_state((3, 65, 65), 1)
+            prep = model.prepare(depth_batch)
+            loss = model._loss(prep["y"], model._forward(ts.nets, prep)[0])
+            net = ts.nets
+            g = list(torch.autograd.grad(loss, list(net.parameters())))
+            dp.all_reduce_grads(g)
+            return g
         ts = model.init_state((3, HW, HW), 1)
         h = HW // dp.axis_size()
         band = x[:, :, h * dp.axis_index():h * (dp.axis_index() + 1)]
@@ -129,29 +166,35 @@ def _gradients_worker():
             d, z_mean, z_std, _ = model._forward(ts.nets, band, z)
             loss = model._losses(band, d, z_mean, z_std)["total_loss"]
             net = ts.nets
-        else:
+        elif part == "critic":
             G, net = ts.nets["generator"], ts.nets["discriminator"]
             with torch.no_grad():
                 g, _ = model._generate(G, z)
             loss = model._critic_loss(net, 2.0 * (band - 0.5), g,
                                       {"alpha": alpha}, commit=False)
+        else:  # the generator's loss through its banded fake
+            net, D = ts.nets["generator"], ts.nets["discriminator"]
+            g, _ = model._generate(net, z)
+            loss = model._g_loss(model._scores(D, g))
         g = list(torch.autograd.grad(loss, list(net.parameters())))
         dp.all_reduce_grads(g)
         return g
 
-    for name in ("cnn", "vae", "iwgan"):
+    for name, part in GRADIENT_CASES:
         with dp.local():
-            want = grads(name)
+            want = grads(name, part)
         mesh.make_axes(1, 2)
-        got = grads(name)
+        got = grads(name, part)
         dp.set_axis(None)
-        # float32's rounding at 1e-6 of the largest gradient; the VAE's
-        # KL gradient near z_stddev 0 is ill-conditioned
-        # (tests/test_torch_dp_gan.py): at 1e-4 of it
+        # float32's rounding at 1e-6 of the largest gradient (it also
+        # covers the biases that feed a BN, whose gradient is zero up to
+        # rounding); the VAE's KL gradient near z_stddev 0 is
+        # ill-conditioned (tests/test_torch_dp_gan.py): at 1e-4 of it
         scale = max(float(b.abs().max()) for b in want)
         atol = (1e-4 if name == "vae" else 1e-6) * scale
         for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=atol, msg=name)
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=atol,
+                                       msg=f"{name} {part}")
 
 
 def test_spatial_gradients_equal_one_process():
