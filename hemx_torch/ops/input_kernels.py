@@ -8,46 +8,64 @@ its ``jnp.take`` gather. Both compute ``float(x) * (hi - lo) / 255 + lo``.
 What bounds it on an H100: bytes. It reads G*B*H*W*C uint8 and writes four
 times that in float32, with no reuse and two flops per element, so the
 only lever is to touch each byte once. The design therefore fuses the
-gather into the normalize: each program loads its own dataset row index,
-reads that row's H*W*C contiguous bytes and writes the normalized floats
-straight to the output row, in the same physical NHWC order (which is the
+gather into the normalize: the kernel loads the dataset row indices,
+reads those rows' H*W*C contiguous bytes and writes the normalized floats
+straight to the output rows, in the same physical NHWC order (which is the
 ``torch.channels_last`` layout of the logical NCHW batch). There is no
 gathered uint8 intermediate and no relayout. The Pallas kernel's
 ``(rows, 128)`` view is deliberately not carried over: on the TPU that view
 forced a relayout of the NHWC input that made the kernel 20x slower than
 XLA's fused convert (``pallas_kernels.py:9-22``).
 
-Triton rather than CUDA C++: a streaming elementwise pass with one indexed
-load per row needs no tensor cores, shared-memory staging or warp
-specialisation; Triton's masked vector loads and stores reach DRAM
-bandwidth, and it compiles at first launch without an nvcc build step.
+The kernel is CUDA C++ for sm_90a (``hemx_torch/csrc/gather_u8_normalize.cu``,
+whose head says how it is laid out for the H100): a persistent grid walks
+the flat output in equal tiles, bulk asynchronous copies stage each tile's
+source rows in shared memory at any row width and storage offset, and
+every store is a 16-byte vector. It is compiled by nvcc at first use
+(:func:`build`) into a library with a plain C interface, loaded with
+``ctypes``.
 
 A height band (``rows=(h0, h1)``): under ``--spatial_parallel`` a rank
 needs only rows ``[h0, h1)`` of each image (``hemx.parallel.mesh
 .batch_spec`` shards height). In NHWC those are one contiguous run of
 ``(h1-h0)*W*C`` bytes at offset ``h0*W*C`` of each dataset row, so the band
-is the same kernel with a row offset and a shorter row: each program reads
-only the band's bytes and writes a (R, C, h1-h0, W) batch. The default is
+is the same kernel with a row offset and a shorter row: it reads only the
+band's bytes (rounded out to the 16-byte granules that hold them) and
+writes a (R, C, h1-h0, W) batch. The default is
 the whole height.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (:func:`gather_u8_normalize_ref`); a CUDA tensor launches the kernel or
-raises — there is no fallback.
+raises — there is no fallback. The build, like ``hemx_torch.native``'s, goes
+through :func:`hemx_torch.utils.build.build_so`: into
+``hemx_torch/_build/cuda/``, named by a hash of the source and the nvcc
+command, once under a lock; a missing ``nvcc`` or a compile error raises
+``RuntimeError`` with the command and the compiler's stderr.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
-from pathlib import Path
+import shutil
 
 import torch
+
+from hemx_torch.utils import build as _build_lib
 
 #: Launches of each hand-written kernel, counted where the kernel launches
 #: (and nowhere else) so a run can show that it went through the kernel.
 LAUNCHES = {"gather_u8_normalize": 0}
 
-_BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-_KERNEL = None
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PACKAGE, "csrc", "gather_u8_normalize.cu")
+BUILD_DIR = os.path.join(_PACKAGE, "_build", "cuda")
+# sm_90a code only; -fmad=false on top of the source's __fmul_rn/__fadd_rn:
+# no multiply-add contraction, so the kernel rounds like the plain version
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_FN = None  # the loaded C entry point
 
 
 def reset_launches() -> None:
@@ -88,37 +106,51 @@ def _check(ds: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError(f"ds on {ds.device} but idx on {idx.device}")
 
 
-def _kernel():
-    """Build (once) and return the Triton kernel. Triton is imported here,
-    never at module import, and caches its compiled binaries under
-    ``hemx_torch/_build/triton`` unless TRITON_CACHE_DIR is already set."""
-    global _KERNEL
-    if _KERNEL is not None:
-        return _KERNEL
-    os.environ.setdefault("TRITON_CACHE_DIR", str(_BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
+def nvcc() -> str:
+    """The nvcc on ``PATH``, else ``$CUDA_HOME/bin/nvcc`` (default
+    ``/usr/local/cuda``)."""
+    return shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
 
-    @triton.jit
-    def gather_u8_normalize_kernel(ds_ptr, idx_ptr, out_ptr, row_elems,
-                                   band_start, band_elems, scale, lo,
-                                   BLOCK: tl.constexpr):
-        # grid = (gathered rows, blocks per band); one program normalizes
-        # BLOCK contiguous bytes of one dataset row's band, which starts
-        # band_start bytes into the row (0 and row_elems: the whole row)
-        row = tl.program_id(0)
-        blk = tl.program_id(1)
-        src = tl.load(idx_ptr + row).to(tl.int64)
-        offs = blk * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < band_elems
-        x = tl.load(ds_ptr + src * row_elems + band_start + offs, mask=mask,
-                    other=0)
-        y = x.to(tl.float32) * scale + lo
-        tl.store(out_ptr + row.to(tl.int64) * band_elems + offs, y,
-                 mask=mask)
 
-    _KERNEL = (triton, gather_u8_normalize_kernel)
-    return _KERNEL
+def compile_command() -> list[str]:
+    """nvcc and its flags, without the source and the output."""
+    return [nvcc(), *FLAGS]
+
+
+def so_path(build_dir: str | None = None) -> str:
+    """Where the build of the kernel's source with :func:`compile_command`
+    lies."""
+    return _build_lib.so_path([SOURCE], compile_command(),
+                              build_dir or BUILD_DIR, "gather_u8_normalize",
+                              ".so")
+
+
+def build(build_dir: str | None = None) -> str:
+    """The path of the kernel's library, compiled first unless it is there;
+    nvcc's output (``-Xptxas -v``: registers, shared memory, spills) is
+    kept beside it (``hemx_torch.utils.build.log_path``)."""
+    return _build_lib.build_so([SOURCE], compile_command(),
+                               build_dir or BUILD_DIR, "gather_u8_normalize",
+                               ".so", log=True)
+
+
+def _launcher():
+    """The C entry point of the library in :data:`BUILD_DIR`, built and
+    loaded once."""
+    global _FN
+    if _FN is None:
+        path = build()
+        try:
+            fn = ctypes.CDLL(path).gather_u8_normalize
+        except OSError as e:
+            raise RuntimeError(f"loading {path} failed: {e}") from e
+        i64, ptr = ctypes.c_int64, ctypes.c_void_p
+        fn.argtypes = [ptr, i64, ptr, i64, ptr, i64, i64, i64, i64,
+                       ctypes.c_float, ctypes.c_float, i64, ptr]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
 
 
 def gather_u8_normalize(ds: torch.Tensor, idx: torch.Tensor,
@@ -141,19 +173,24 @@ def gather_u8_normalize(ds: torch.Tensor, idx: torch.Tensor,
     if not ds.is_contiguous():
         raise ValueError("gather_u8_normalize: ds must be contiguous")
     h0, h1 = _band(ds, rows)
-    triton, kernel = _kernel()
     n, h, w, c = ds.shape
     count = idx.numel()
     band_elems = (h1 - h0) * w * c
+    if band_elems >= 1 << 30:
+        raise ValueError(f"gather_u8_normalize: rows of {band_elems} bytes; "
+                         f"the kernel takes under 2^30")
     out = torch.empty((count, h1 - h0, w, c), dtype=torch.float32,
                       device=ds.device)
     if count:
-        block = min(4096, triton.next_power_of_2(band_elems))
-        grid = (count, triton.cdiv(band_elems, block))
-        # fp fusion off: mul then add, rounded like the plain version
-        kernel[grid](ds, idx.contiguous(), out, h * w * c, h0 * w * c,
-                     band_elems, (hi - lo) / 255.0, float(lo), BLOCK=block,
-                     num_warps=8 if block >= 2048 else 4,
-                     enable_fp_fusion=False)
+        launch = _launcher()
+        idx = idx.contiguous()
+        err = launch(ds.data_ptr(), ds.numel(), idx.data_ptr(),
+                     idx.element_size(), out.data_ptr(), count, h * w * c,
+                     h0 * w * c, band_elems, (hi - lo) / 255.0, float(lo),
+                     ds.device.index,
+                     torch.cuda.current_stream(ds.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"gather_u8_normalize: launch failed with "
+                               f"CUDA error {err}")
         LAUNCHES["gather_u8_normalize"] += 1
     return out.permute(0, 3, 1, 2)

@@ -2,7 +2,7 @@
 """Two or more hemx_torch trees, in turns, on one GPU machine: the host's
 record paths and the train calls that ``chip_smoke.py`` times.
 
-    python3 scripts/trees_ab.py TREE [TREE ...] [--out PATH]
+    python3 scripts/trees_ab.py TREE [TREE ...] [--kernel] [--out PATH]
 
 Each TREE is the root of a checkout: this repository, or another commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
@@ -11,7 +11,12 @@ TREE runs in a process of its own that imports that tree's
 ``hemx_torch`` and ``chip_smoke``:
 
 1. the host's record paths, with the native module (where the tree has
-   one) built before the clock starts: the converters of
+   one) built before the clock starts, or with ``--kernel`` in their
+   place the tree's ``chip_smoke.phase_kernel`` (phase 2: the input
+   kernel against its plain version, its CUDA-event time on 3,072 rows of
+   64x64x3, and its device time with the L2 cache flushed on the short
+   gathers and the height bands), so that two versions of the kernel are
+   timed on one card in turns: the converters of
    ``chip_smoke.py``'s raw sets (phase 9's 5,120 floorplan PNGs of
    128x128, phase 16's celeb and coco JPEG trees; the raw files written
    once, by this tree's writers), and the median of 5 summaries of phase
@@ -23,7 +28,9 @@ TREE runs in a process of its own that imports that tree's
    wgan, cnn and vae in bf16 at BASELINE's widths; the median call of
    each is read from the lines they print.
 
-Prints one JSON line per tree and writes them all to ``--out``.
+Prints one JSON line per tree and writes them all to ``--out``; with
+``--kernel``, then one line per gather: each tree's kernel time in the
+order given, and its share of the bytes bound.
 """
 
 from __future__ import annotations
@@ -93,6 +100,22 @@ def record_paths(raw: str, work: str) -> dict:
     return out
 
 
+def kernel_times() -> dict:
+    """The tree's phase 2: ms per gather (CUDA events for the 3,072-row
+    call, device time for the rest) and each gather's bytes bound."""
+    import torch
+
+    import chip_smoke as C
+    k = C.phase_kernel(torch, torch.device("cuda:0"))
+    ms = {"3072x64x64x3 (events)": k["ms"]}
+    bound = {"3072x64x64x3 (events)": k["bound_ms"]}
+    for r in k["cold_rows"] + k["band_rows"]:
+        name = r["rows"] + (" rows {}-{}".format(*r["band"]) if "band" in r
+                            else "")
+        ms[name], bound[name] = r["device_ms"], r["bound_ms"]
+    return {"kernel_ms": ms, "kernel_bound_ms": bound}
+
+
 def train_calls(work: str) -> str:
     """Phases 4, 6 and 8; returns the card's name and power limit."""
     import torch
@@ -107,16 +130,16 @@ def train_calls(work: str) -> str:
     return card
 
 
-def child(tree: str, raw: str, work: str) -> None:
+def child(tree: str, raw: str, work: str, kernel: bool) -> None:
     """One tree's run, in this process; its last line is the card and the
-    record paths' figures as JSON."""
+    record paths' (or the kernel's) figures as JSON."""
     sys.path.insert(0, tree)
     import chip_smoke
     import hemx_torch
     for mod in (chip_smoke, hemx_torch):
         if not mod.__file__.startswith(tree + os.sep):
             raise RuntimeError(f"{mod.__file__} is not under {tree}")
-    paths = record_paths(raw, work)
+    paths = kernel_times() if kernel else record_paths(raw, work)
     card = train_calls(work)
     print(json.dumps({"card": card, **paths}), flush=True)
 
@@ -137,27 +160,31 @@ def medians(stdout: str) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("trees", nargs="*")
+    p.add_argument("--kernel", action="store_true",
+                   help="phase 2 in place of the record paths")
     p.add_argument("--out", default="")
     p.add_argument("--child", nargs=3, metavar=("TREE", "RAW", "WORK"),
                    help=argparse.SUPPRESS)
     a = p.parse_args()
     if a.child:
-        child(*a.child)
+        child(*a.child, a.kernel)
         return 0
     if not a.trees:
         p.error("name at least one tree")
     lines = []
     with tempfile.TemporaryDirectory(prefix="trees_ab_") as tmp:
         raw = os.path.join(tmp, "raw")
-        t0 = time.perf_counter()
-        write_raw(raw)
-        print(f"raw sets written in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        if not a.kernel:
+            t0 = time.perf_counter()
+            write_raw(raw)
+            print(f"raw sets written in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
         for i, tree in enumerate(a.trees):
             tree = os.path.abspath(tree)
             r = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--child", tree,
-                 raw, os.path.join(tmp, f"run{i}")], cwd=tree,
+                 raw, os.path.join(tmp, f"run{i}")]
+                + (["--kernel"] if a.kernel else []), cwd=tree,
                 capture_output=True, text=True, timeout=900)
             if r.returncode != 0:
                 sys.stderr.write(r.stdout[-4000:] + r.stderr[-4000:])
@@ -167,6 +194,12 @@ def main() -> int:
                     "median_call_s": medians(r.stdout)}
             print(json.dumps(line), flush=True)
             lines.append(line)
+    if a.kernel:
+        for name, bound in lines[0]["kernel_bound_ms"].items():
+            ms = [line["kernel_ms"].get(name) for line in lines]
+            print(f"{name}: ms {ms}, share of the {bound:.4f} ms bound "
+                  f"{[round(bound / m, 3) if m else None for m in ms]}",
+                  flush=True)
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
         with open(a.out, "w") as f:

@@ -31,15 +31,17 @@ setup(
     # still work where the wheel's extension is absent.
     # hemx_torch.native has no prebuilt extension: it compiles its source
     # with g++ at first use (into hemx_torch/_build/native) and raises if
-    # it cannot, so the source ships with the package.
+    # it cannot, so the source ships with the package; so does the CUDA
+    # source of its input kernel, which nvcc compiles at first launch.
     package_data={"hemx.native": ["tfrecord.cc"],
-                  "hemx_torch.native": ["tfrecord.cc"]},
+                  "hemx_torch.native": ["tfrecord.cc"],
+                  "hemx_torch": ["csrc/*.cu"]},
     py_modules=["train", "paper_train", "experimental", "visualize",
                 "paper_metrics", "paper_fullimage", "paper_visualize",
                 "events", "visualize_gui", "bench"],
     python_requires=">=3.10",
     install_requires=["jax", "optax", "flax", "numpy"],
     extras_require={"viz": ["matplotlib", "pillow"],
-                    "torch": ["torch", "triton"]},
+                    "torch": ["torch"]},
     ext_modules=ext_modules,
 )
