@@ -52,6 +52,7 @@ import torch
 from hemx_torch.data.tfrecord import read_all_records
 from hemx_torch.ops.input_kernels import gather_u8_normalize
 from hemx_torch.parallel import dp
+from hemx_torch.utils import tracing
 
 
 class ArraySource:
@@ -391,6 +392,7 @@ class DeviceDataPipeline:
         out = v.index_select(0, idx)
         return out.permute(0, 3, 1, 2) if out.dim() == 4 else out
 
+    @tracing.spanned("input.assemble")
     def _assemble(self, idx: np.ndarray, parts: int) -> list[dict]:
         i = torch.from_numpy(np.asarray(idx, np.int32)).to(self.device)
         gathered = {k: self._gather(k, i) for k in self.ds}
@@ -402,9 +404,11 @@ class DeviceDataPipeline:
         """Device batches for one epoch, in ``Split.iter_epoch_indices``
         order."""
         pending: list[np.ndarray] = []
-        for idx in self.split.iter_epoch_indices(
+        with tracing.span("input.order"):
+            order = list(self.split.iter_epoch_indices(
                 self.global_batch, shuffle=self.shuffle, seed=self.seed,
-                epoch=epoch):
+                epoch=epoch))
+        for idx in order:
             pending.append(dp.host_slice(idx))
             if len(pending) == self.group:
                 flat = np.concatenate(pending)
@@ -569,7 +573,8 @@ class Pipeline:
         t.start()
         try:
             while True:
-                item = q.get()
+                with tracing.span("input.wait"):
+                    item = q.get()
                 if item is done:
                     break
                 yield from self._place(item)

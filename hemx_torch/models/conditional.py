@@ -51,6 +51,7 @@ from hemx_torch.ops.layers import commit_moving_stats
 from hemx_torch.parallel import dp
 from hemx_torch.train.optimizers import (Optimizer, clip_params,
                                          make_transform)
+from hemx_torch.utils import tracing
 
 
 def draw_noise(net: nn.Module, gen: torch.Generator, x: torch.Tensor) -> dict:
@@ -178,6 +179,7 @@ class ConditionalGanBase(ModelPlugin):
                                                                grads)
         return metrics
 
+    @tracing.spanned("step.critic")
     def d_step(self, ts: common.TrainState, batch: dict, noise: dict) -> dict:
         G, D = ts.nets["generator"], ts.nets["discriminator"]
         prep = self.prepare(batch)
@@ -185,7 +187,8 @@ class ConditionalGanBase(ModelPlugin):
             g, _ = self.g_forward(G, prep, noise)
         real, fake = self._real_fake(D, prep, g, commit=True)
         _, d_loss, d_real, d_fake = self._gan_losses(real, fake)
-        grads = torch.autograd.grad(d_loss, list(D.parameters()))
+        with tracing.span("backward"):
+            grads = torch.autograd.grad(d_loss, list(D.parameters()))
         ts.opt["d"].step(grads)
         if self.training_version == "wgan":
             clip_params(D.parameters(), self.clip_value)
@@ -195,6 +198,7 @@ class ConditionalGanBase(ModelPlugin):
                             "d_grad_norm": common.grad_norm(grads, D)},
                            "d", D, grads)
 
+    @tracing.spanned("step.generator")
     def g_step(self, ts: common.TrainState, batch: dict, noise: dict) -> dict:
         G, D = ts.nets["generator"], ts.nets["discriminator"]
         prep = self.prepare(batch)
@@ -202,7 +206,8 @@ class ConditionalGanBase(ModelPlugin):
         fake, _ = self.d_forward(D, prep, g)
         g_gan = self._g_loss_from_fake(fake)
         g_loss, extra_g = self._g_total(g_gan, g, prep)
-        grads = torch.autograd.grad(g_loss, list(G.parameters()))
+        with tracing.span("backward"):
+            grads = torch.autograd.grad(g_loss, list(G.parameters()))
         with torch.no_grad():
             extra = self.extra_losses(g, prep)
         ts.opt["g"].step(grads)

@@ -56,6 +56,7 @@ from hemx_torch.ops.layers import (Conv2d, Deconv2d, Dense, Flatten,
                                    Sequential, commit_moving_stats)
 from hemx_torch.parallel import sp
 from hemx_torch.train.optimizers import clip_params, init_optimizer
+from hemx_torch.utils import tracing
 
 WGAN_CLIP = 0.01
 
@@ -197,6 +198,7 @@ class GanModel(ModelPlugin):
         if self.model_type == "wgan":
             clip_params(net.parameters(), WGAN_CLIP)
 
+    @tracing.spanned("step.critic")
     def d_step(self, ts: common.TrainState, batch: dict, noise: dict) -> dict:
         """One critic update on a fresh batch (WGAN, IWGAN)."""
         G, D = ts.nets["generator"], ts.nets["discriminator"]
@@ -205,10 +207,12 @@ class GanModel(ModelPlugin):
             # training-mode BN; new stats discarded
             g, _ = self._generate(G, noise["z"])
         d_loss = self._critic_loss(D, x, g, noise, commit=True)
-        grads = torch.autograd.grad(d_loss, list(D.parameters()))
+        with tracing.span("backward"):
+            grads = torch.autograd.grad(d_loss, list(D.parameters()))
         self._apply(ts, "d", D, grads)
         return self._report({"d_loss": d_loss.detach()}, ("d", D, grads))
 
+    @tracing.spanned("step.generator")
     def g_step(self, ts: common.TrainState, batch: dict, noise: dict) -> dict:
         """One generator update on a fresh batch (used only for the
         reported ``d_loss``) (WGAN, IWGAN)."""
@@ -217,7 +221,8 @@ class GanModel(ModelPlugin):
         g, g_stats = self._generate(G, noise["z"])
         d_fake = self._scores(D, g)
         g_loss = self._g_loss(d_fake)
-        grads = torch.autograd.grad(g_loss, list(G.parameters()))
+        with tracing.span("backward"):
+            grads = torch.autograd.grad(g_loss, list(G.parameters()))
         with torch.no_grad():
             d_loss = self._d_loss(self._scores(D, x), d_fake)
         self._apply(ts, "g", G, grads)
@@ -226,6 +231,7 @@ class GanModel(ModelPlugin):
         return self._report({"g_loss": g_loss.detach(), "d_loss": d_loss},
                             ("g", G, grads))
 
+    @tracing.spanned("step.generator")
     def gan_step(self, ts: common.TrainState, batch: dict,
                  noise: dict) -> dict:
         """The vanilla GAN's fused step: one batch, one z; D's and G's
@@ -238,9 +244,11 @@ class GanModel(ModelPlugin):
         g, g_stats = self._generate(G, noise["z"])
         d_real, d_fake = self._real_fake(D, x, g, commit=True)
         d_loss, g_loss = L.gan_d_loss(d_real, d_fake), L.gan_g_loss(d_fake)
-        d_grads = torch.autograd.grad(d_loss, list(D.parameters()),
-                                      retain_graph=True)
-        g_grads = torch.autograd.grad(g_loss, list(G.parameters()))
+        with tracing.span("backward"):
+            d_grads = torch.autograd.grad(d_loss, list(D.parameters()),
+                                          retain_graph=True)
+        with tracing.span("backward"):
+            g_grads = torch.autograd.grad(g_loss, list(G.parameters()))
         self._apply(ts, "d", D, d_grads)
         self._apply(ts, "g", G, g_grads)
         commit_moving_stats(G, g_stats)

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from hemx_torch.parallel import tp
+from hemx_torch.utils import tracing
 
 # name -> "module:Class", imported on lookup
 _REGISTRY = {"cnn": "hemx_torch.models.cnn:CnnModel",
@@ -78,6 +79,12 @@ class ModelPlugin:
     @staticmethod
     def arguments() -> dict:
         return {}
+
+    def __init_subclass__(cls, **kwargs):
+        # every model's train call is one ``hemx_torch.call`` span
+        super().__init_subclass__(**kwargs)
+        if "train" in cls.__dict__:
+            cls.train = tracing.call(cls.__dict__["train"])
 
     def __init__(self, args, device):
         self.args = args

@@ -52,10 +52,11 @@ import shutil
 import torch
 
 from hemx_torch.utils import build as _build_lib
+from hemx_torch.utils import tracing
 
 #: Launches of each hand-written kernel, counted where the kernel launches
 #: (and nowhere else) so a run can show that it went through the kernel.
-LAUNCHES = {"gather_u8_normalize": 0}
+LAUNCHES = tracing.counter("launches", "gather_u8_normalize")
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PACKAGE, "csrc", "gather_u8_normalize.cu")

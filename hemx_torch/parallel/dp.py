@@ -53,11 +53,13 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from hemx_torch.utils import tracing
+
 #: largest bucket of :func:`all_reduce_grads`, bytes
 BUCKET_BYTES = 32 << 20
 
 #: collectives and bytes :func:`all_reduce_grads` has run in this process
-GRAD_REDUCTIONS = {"collectives": 0, "bytes": 0}
+GRAD_REDUCTIONS = tracing.counter("grad_reductions", "collectives", "bytes")
 
 _local = contextvars.ContextVar("hemx_torch_dp_local", default=False)
 
@@ -268,17 +270,18 @@ def all_reduce_grads(grads) -> None:
     if not active():
         return
     group, w = grad_group()
-    for bucket in _buckets([g for g in grads if g is not None]):
-        flat = torch.cat([g.reshape(-1) for g in bucket])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        GRAD_REDUCTIONS["collectives"] += 1
-        GRAD_REDUCTIONS["bytes"] += flat.numel() * flat.element_size()
-        flat.div_(w)
-        offset = 0
-        for g in bucket:
-            n = g.numel()
-            g.copy_(flat[offset:offset + n].view_as(g))
-            offset += n
+    with tracing.span("dp.all_reduce"):
+        for bucket in _buckets([g for g in grads if g is not None]):
+            flat = torch.cat([g.reshape(-1) for g in bucket])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+            GRAD_REDUCTIONS["collectives"] += 1
+            GRAD_REDUCTIONS["bytes"] += flat.numel() * flat.element_size()
+            flat.div_(w)
+            offset = 0
+            for g in bucket:
+                n = g.numel()
+                g.copy_(flat[offset:offset + n].view_as(g))
+                offset += n
 
 
 def reduce_metrics(metrics: dict) -> dict:

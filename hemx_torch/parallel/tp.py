@@ -47,10 +47,11 @@ import torch
 import torch.distributed as dist
 
 from hemx_torch.parallel import dp
+from hemx_torch.utils import tracing
 
 #: collectives and bytes the all-reduces of this module and of
 #: ``hemx_torch.parallel.sp`` have run in this process
-COLLECTIVES = {"collectives": 0, "bytes": 0}
+COLLECTIVES = tracing.counter("collectives", "collectives", "bytes")
 
 # NCHW dim -> the dim of the same axis in the NHWC view of a 4-D tensor
 _NHWC_DIM = {0: 0, 1: 3, 2: 1, 3: 2}

@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from hemx_torch.parallel import dp
+from hemx_torch.utils import tracing
 
 
 class Moments(dict):
@@ -208,6 +209,7 @@ class Optimizer:
         return {n: p.detach() for n, p in self.params.items()}
 
     @torch.no_grad()
+    @tracing.spanned("optimizer")
     def step(self, grads) -> None:
         """In a process group ``grads`` are first averaged over the ranks,
         in place (every model's updates pass here, so every rank applies

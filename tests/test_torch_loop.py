@@ -11,7 +11,8 @@ on the CPU.
   not (bf16 and hemx's default optimizer, rmsprop).
 * options.json agrees with hemx's on the keys both have.
 * ``--check_numerics`` exits nonzero on an injected NaN; ``--profile``
-  writes a trace; an already finished ``--epochs n`` trains nothing.
+  writes a trace that holds the train call's spans; an already finished
+  ``--epochs n`` trains nothing.
 """
 
 import json
@@ -195,6 +196,9 @@ def test_profile_writes_a_trace(tmp_path):
             + ["--dir", str(tmp_path)])
     trace = tmp_path / "profile" / "trace.json"
     assert trace.exists() and trace.stat().st_size > 0
+    names = {e.get("name") for e in json.loads(trace.read_text())[
+        "traceEvents"]}
+    assert "hemx_torch.call" in names and "hemx_torch.backward" in names
 
 
 # the single-network models: 16 images of 16 px, batch 4, epochs of 3
